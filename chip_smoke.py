@@ -1,13 +1,13 @@
 """Drive genometools_torch's main path once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--gens 48,384,1536]
 
 Run from the root of a checkout. Phases, each printed with its seconds:
 
   1. setup: build the CUDA kernels from genometools_torch/csrc;
-  2. K1 (greedy) and K3 (xdrop) against their plain PyTorch versions on
-     the card, at every shape the main path launches (exact: tolerance
-     0, the outputs are integers);
+  2. K1 (greedy), K2 (greedy chunk) and K3 (xdrop) against their plain
+     PyTorch versions on the card, at every shape the main paths launch
+     (exact: tolerance 0, the outputs are integers);
   3. `python -m genometools_torch suffixerator -suf -lcp -tis` on the
      at1MB test genome: .suf/.lcp/.llv must equal gt's goldens;
   4. the suffix array of a 32 Mbp synthetic genome on the card against
@@ -17,7 +17,21 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      tasks; score sum 17,549,780 over 65,536 tasks at belowscore 7);
   6. the seed_extend CLI (greedy, then xdrop) on the phase-3 index
      against the reference's fused host engine, with the kernels'
-     launch counts read around this run.
+     launch counts read around this run (the main path of K1 and K3);
+  7. long flanks on g4m_planted_repeats (two 2 Mbp sequences with 150
+     planted repeats, numpy seed 2026): (a) the suffixerator and
+     seed_extend -extendgreedy CLI against the fused host engine, with
+     the launch counts read around the seed_extend run (the main path
+     of K2); (b) 65,536 flank tasks of its extension workload, clipped
+     at 16,384, through the chunk loop and K2 and through the host
+     engine (skip_chunked), in turns: equal alignedlen sums. --gens
+     repeats the K2 route at other chunk GENS.
+
+Each kernel's bound is the larger of its bytes (inputs read once,
+outputs written once) over 3.35 TB/s and its integer operations over
+the H100's INT32 rate (132 SMs x 64 lanes x 1.98 GHz); the
+operations are the live slot-generations the plain version counts on
+the same inputs, times OPS_PER_SLOT_GEN.
 
 Any mismatch or error exits non-zero before the last line. The last
 line is the device JSON; the line before it lists the kernels. Without
@@ -27,6 +41,7 @@ script fails.
 
 from __future__ import annotations
 
+import argparse
 import atexit
 import contextlib
 import gzip
@@ -48,6 +63,14 @@ ROOT = Path(__file__).resolve().parent
 AT1MB = ROOT / "tests" / "golden_esa" / "at1MB" / "idx"
 GREEDY_ANCHOR = (530140, 157827064)
 XDROP_ANCHOR = (65536, 17549780)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations one live slot needs per generation, at the least:
+# the predecessor pick, the history and counter updates, one match word
+# from the six planes and its run, the trim tests (greedy); the
+# candidate pick, the prune test, one match word and the score (xdrop).
+# The polishing walk and the warp reductions are not counted.
+OPS_PER_SLOT_GEN = {"K1": 64, "K2": 64, "K3": 48}
 
 
 def log(msg: str) -> None:
@@ -76,7 +99,8 @@ def ptxas_summary(build_log: str) -> dict:
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"entry function '\S*?(greedy_full_kernel|"
-                      r"xdrop_full_kernel)ILi(\d+)E", line)
+                      r"greedy_chunk_kernel|xdrop_full_kernel)ILi(\d+)E",
+                      line)
         if m:
             cur = out.setdefault(m.group(1), {}), int(m.group(2))
             spill = 0
@@ -104,6 +128,64 @@ def cuda_ms(fn, reps=1):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps, out
+
+
+class Kernel:
+    """A kernel's phase-2 totals: times, error, and its bound."""
+
+    def __init__(self, kid):
+        self.kid = kid
+        self.ms = self.plain_ms = 0.0
+        self.err = 0
+        self.bytes_ms = self.ops_ms = self.bound_ms = 0.0
+
+    def add(self, ms, plain_ms, err, nbytes, slot_gens):
+        """One shape: kernel and plain times, the max error and the work
+        (bytes moved, live slot-generations) of that shape."""
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.err = max(self.err, err)
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        o = slot_gens * OPS_PER_SLOT_GEN[self.kid] / INT32_OPS_PER_S * 1e3
+        self.bytes_ms += b
+        self.ops_ms += o
+        self.bound_ms += max(b, o)
+        if err:
+            raise SystemExit(f"{self.kid} disagrees with its plain version")
+        return f"bound {max(b, o):.4f} ms (bytes {b:.4f}, operations {o:.4f})"
+
+    @property
+    def bound_by(self):
+        return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+
+def profile_run(fn) -> None:
+    """fn() under cProfile (host: the top functions by cumulative time)
+    and torch.profiler (device: busy time and the top kernels)."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            contextlib.redirect_stdout(io.StringIO()):
+        pr.enable()
+        fn()
+        pr.disable()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = io.StringIO()
+    pstats.Stats(pr, stream=out).sort_stats("cumulative").print_stats(30)
+    log(out.getvalue())
+    ev = [(getattr(e, "self_device_time_total", 0) or
+           getattr(e, "self_cuda_time_total", 0), e.count, e.key)
+          for e in prof.key_averages()]
+    busy = sum(us for us, _, _ in ev) / 1e6
+    log(f"profiled run {wall:.3f}s, device busy {busy:.3f}s "
+        f"({100 * busy / wall:.1f} %)")
+    for us, count, key in sorted(ev, reverse=True)[:12]:
+        log(f"  device {us / 1e6:.4f}s  {count} x {key[:90]}")
 
 
 def write_fasta(enc, path: Path) -> None:
@@ -168,6 +250,21 @@ def random_flanks(rng, n, maxlen, err_lo=0.02, err_hi=0.4):
     return us, vs
 
 
+def long_flanks(rng, n, lo, hi):
+    """Homologous flank pairs of lo..hi symbols: v is u with 1-15 %
+    substitutions and 0.5 % indels; some u carry wildcards."""
+    from genometools_torch.utils.synthetic import mutate
+    us, vs = [], []
+    for t in range(n):
+        u = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
+        v = mutate(rng, u, rng.uniform(0.01, 0.15))
+        if t % 4 == 0:
+            u[rng.integers(0, u.size, 3)] = 254
+        us.append(u)
+        vs.append(v)
+    return us, vs
+
+
 def flank_pool(us, vs):
     pool = np.concatenate(list(us) + list(vs))
     lu = np.asarray([len(u) for u in us], np.int64)
@@ -176,6 +273,14 @@ def flank_pool(us, vs):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gens", default="",
+                    help="comma-separated chunk GENS to time the phase-7 "
+                         "K2 route at, beside the configured one")
+    ap.add_argument("--profile", action="store_true",
+                    help="run phase 7a's seed_extend once more under "
+                         "cProfile and torch.profiler (device time)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -191,12 +296,16 @@ def main() -> int:
     from genometools_torch.match.seed_extend import (SeedExtendParams,
                                                      seed_extend)
     from genometools_torch.ops import greedy_batch as gb
+    from genometools_torch.ops import greedy_chunk as gc
     from genometools_torch.ops import greedy_full as gf
     from genometools_torch.ops import xdrop_batch as xb
     from genometools_torch.ops import xdrop_full as xf
 
-    if "jax" in sys.modules:
-        raise SystemExit("chip_smoke: the port imported jax")
+    from genometools_torch.utils.synthetic import (planted_repeats,
+                                                   write_fasta as fasta)
+    for name in ("jax", "genometools_tpu"):
+        if name in sys.modules:
+            raise SystemExit(f"chip_smoke: the port imported {name}")
     dev = genometools_torch.resolve_device("cuda")
     kernels = {}
 
@@ -219,7 +328,8 @@ def main() -> int:
         pol = p80.polishing_info()
         sc = (gb._mmp128(pmh), mad, pol.match_score, pol.difference_score,
               p80.history)
-        k1 = dict(ms=0.0, plain_ms=0.0, err=0)
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        k1 = kernels["K1"] = Kernel("K1")
         # every pass shape at 4,096 lanes, then the first pass at a
         # main-path wave size (131,072 lanes)
         shapes = [(s, 4096) for s in gb.GreedyBatchConfig.FULL_PASSES] + \
@@ -229,42 +339,80 @@ def main() -> int:
             us, vs = random_flanks(rng, n, W)
             pool, uo, ul, vo, vl = flank_pool(us, vs)
             gp = gb.upload_pool(pool, dev)
-            t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
             PK = gb.pk_from_pool(gp, t(uo), t(ul), t(vo), t(vl),
                                  t(np.zeros(len(us), bool)),
                                  t(rng.integers(10, 40, len(us))), W)
+            cnt = {}
             ms, kout = cuda_ms(lambda: gf.greedy_full(PK, *sc, W, D, GENS))
             pms, pout = cuda_ms(lambda: gf.greedy_full_plain(
-                PK, *sc, W, D, GENS))
+                PK, *sc, W, D, GENS, counts=cnt))
             err = int((kout.long() - pout.long()).abs().max())
+            b = k1.add(ms, pms, err, PK.numel() * 4 + kout.numel() * 4,
+                       cnt["slot_gens"] // 2)
             log(f"K1 W={W} D={D} GENS={GENS} N={len(us)}: kernel "
-                f"{ms:.3f} ms, plain {pms:.1f} ms, max_abs_err {err}, "
+                f"{ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err {err}, "
                 f"done {int(kout[4].sum())}, undone {int(kout[6].sum())}")
-            k1["err"] = max(k1["err"], err)
-            if err:
-                raise SystemExit("K1 disagrees with its plain version")
-            k1["ms"] += ms
-            k1["plain_ms"] += pms
-        kernels["K1"] = k1
-        k3 = dict(ms=0.0, plain_ms=0.0, err=0)
+        k2 = kernels["K2"] = Kernel("K2")
+        cfg = gb.GreedyBatchConfig()
+        for W in cfg.W_TIERS:
+            # generation-0 states of long homologous flank pairs, built
+            # as the chunk loop builds them; sized so that the plain
+            # version takes seconds
+            n = 4096 if W <= 1536 else 256
+            us, vs = long_flanks(rng, n, W // 2, 3 * W)
+            pool, uo, ul, vo, vl = flank_pool(us, vs)
+            gp = gb.upload_pool(pool, dev)
+            su, ulen, sv, vlen = t(uo), t(ul), t(vo), t(vl)
+            rv = t(np.zeros(n, bool))
+            for D in cfg.D_TIERS:
+                c0, state = gb.chunk_gen0(gp, su, ulen, sv, vlen, rv,
+                                          t(rng.integers(10, 40, n)),
+                                          p80.history, D)
+                c0t = t(c0)
+                PW = gb.chunk_windows(gp, su, ulen, sv, vlen, rv, c0t, c0t,
+                                      W)
+                z = lambda dt: torch.zeros(n, dtype=dt, device=dev)
+                args = (PW, *state, z(torch.int32), z(torch.bool),
+                        z(torch.bool), torch.zeros((n, 4), dtype=torch.int32,
+                                                   device=dev),
+                        (ulen - c0t).int(), (vlen - c0t).int(), z(torch.int32),
+                        c0t.int())
+                cnt = {}
+                ms, kout = cuda_ms(lambda: gc.greedy_chunk(
+                    *args, *sc, W, D, cfg.GENS))
+                pms, pout = cuda_ms(lambda: gc.greedy_chunk_plain(
+                    *args, *sc, W, D, cfg.GENS, counts=cnt))
+                err = max(int((k.long() - q.long()).abs().max())
+                          for k, q in zip(kout, pout))
+                nbytes = sum(a.numel() * a.element_size() for a in args) + \
+                    sum(a.numel() * a.element_size() for a in kout)
+                b = k2.add(ms, pms, err, nbytes, cnt["slot_gens"] // 2)
+                log(f"K2 W={W} D={D} GENS={cfg.GENS} N={n}: kernel "
+                    f"{ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err "
+                    f"{err}, done {int(kout[6].sum())}, paused "
+                    f"{int(kout[8].sum())}, generations "
+                    f"{int(kout[9].long().sum())}")
+        k3 = kernels["K3"] = Kernel("K3")
         for W in xb.TIERS:
             us, vs = random_flanks(rng, 4096, W, 0.02, 0.25)
             PK = torch.from_numpy(
                 xf.pack_xdrop_tasks(us, vs, W).view(np.int32)).to(dev)
+            cnt = {}
             ms, kout = cuda_ms(lambda: xf.xdrop_full(PK, 7, W, xb.D_BAND,
                                                      xb.GENS))
             pms, pout = cuda_ms(lambda: xf.xdrop_full_plain(
-                PK, 7, W, xb.D_BAND, xb.GENS))
+                PK, 7, W, xb.D_BAND, xb.GENS, counts=cnt))
             err = int((kout.long() - pout.long()).abs().max())
+            b = k3.add(ms, pms, err, PK.numel() * 4 + kout.numel() * 4,
+                       cnt["slot_gens"] // 2)
             log(f"K3 W={W} D={xb.D_BAND} GENS={xb.GENS} N={len(us)}: "
-                f"kernel {ms:.3f} ms, plain {pms:.1f} ms, max_abs_err "
+                f"kernel {ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err "
                 f"{err}, unsafe {int(kout[3].sum())}")
-            k3["err"] = max(k3["err"], err)
-            if err:
-                raise SystemExit("K3 disagrees with its plain version")
-            k3["ms"] += ms
-            k3["plain_ms"] += pms
-        kernels["K3"] = k3
+        for k in kernels.values():
+            log(f"{k.kid} over its shapes: kernel {k.ms:.3f} ms, plain "
+                f"{k.plain_ms:.1f} ms, bound {k.bound_ms:.4f} ms (bytes "
+                f"{k.bytes_ms:.4f}, operations {k.ops_ms:.4f}; bound by "
+                f"{k.bound_by}) [{smi}]")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, work, True)
@@ -400,16 +548,112 @@ def main() -> int:
             raise SystemExit("the main path launched a kernel no time")
         launches = {"K1": gf.launches, "K3": xf.launches}
 
+    with Phase("7a long flanks: seed_extend CLI on g4m_planted_repeats"):
+        t0 = time.perf_counter()
+        fasta(planted_repeats(), work / "g4m.fna", "g4m")
+        log(f"g4m_planted_repeats: 2 x 2,000,000 bp, 150 repeats, "
+            f"{time.perf_counter() - t0:.1f}s to generate")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "genometools_torch",
+                        "suffixerator", "-db", "g4m.fna", "-indexname",
+                        "g4m", "-suf", "-lcp", "-tis"], cwd=work, env=env,
+                       check=True)
+        log(f"suffixerator g4m: {time.perf_counter() - t0:.3f}s")
+        argv = ["seed_extend", "-ii", "g4m", "-extendgreedy", "-l", "500",
+                "-minidentity", "80"]
+        gf.launches = 0
+        gc.launches = 0
+        gb.reset_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        dt = time.perf_counter() - t0
+        launches["K2"] = gc.launches
+        lines = buf.getvalue().splitlines()
+        log(f"seed_extend g4m -extendgreedy -l 500 -minidentity 80: "
+            f"{len(lines)} matches in {dt:.3f}s [{smi}]; launches K1 "
+            f"{gf.launches}, K2 {gc.launches}; lanes K1 "
+            f"{gb.stats['kernel_lanes']}, K2 {gb.stats['chunk_lanes']}, "
+            f"host {gb.stats['host_lanes']}")
+        g4m = Encseq.load("g4m")
+        p = SeedExtendParams(extension="greedy", userdefinedleastlength=500,
+                             minidentity=80)
+        t0 = time.perf_counter()
+        ref = [mm.line() for mm in seed_extend(g4m, None, p,
+                                               engine="fused")]
+        log(f"fused host engine: {len(ref)} matches in "
+            f"{time.perf_counter() - t0:.3f}s")
+        if lines != ref or not lines:
+            raise SystemExit("seed_extend g4m differs from the fused engine")
+        if gc.launches == 0:
+            raise SystemExit("the long-flank path launched K2 no time")
+        if opts.profile:
+            profile_run(lambda: cli.main(argv))
+
+    with Phase("7b long flanks: K2 route against the host route"):
+        t0 = time.perf_counter()
+        pool, u_off, u_len, v_off, v_len, rev, k = \
+            collect_extension_pool(g4m, p)
+        idx = np.linspace(0, u_off.size - 1, 65536).astype(np.int64)
+        # clip at 16,384, keeping the end nearest the seed (a reversed,
+        # left flank starts its read at off + len)
+        cap = 16384
+        sub = []
+        for off, ln in ((u_off[idx], u_len[idx]), (v_off[idx], v_len[idx])):
+            cl = np.minimum(ln, cap)
+            sub += [np.where(rev[idx], off + ln - cl, off), cl]
+        sub.append(rev[idx])
+        log(f"workload: {u_off.size} tasks, k={k}, 65,536 sampled, "
+            f"flanks clipped at {cap}; {time.perf_counter() - t0:.1f}s")
+        pmh, mad = p.greedy_params()
+        kw = dict(seedlengths=k, perc_mat_history=pmh,
+                  maxalignedlendifference=mad, pol_info=p.polishing_info(),
+                  history=p.history, device=dev,
+                  gp=gb.upload_pool(pool, dev))
+        gb.greedy_extend_batch_pool(pool, *(a[:1024] for a in sub),
+                                    **kw)                     # warm-up
+        gens = [gb.GreedyBatchConfig.GENS] + \
+            [int(g) for g in opts.gens.split(",") if g]
+        sums = {}
+        for route in ("K2", "host", "host", "K2"):
+            for g in gens if route == "K2" else [None]:
+                cfg = gb.GreedyBatchConfig()
+                cfg.GENS = g or cfg.GENS
+                gb.reset_stats()
+                gc.launches = 0
+                t0 = time.perf_counter()
+                res = gb.greedy_extend_batch_pool(
+                    pool, *sub, cfg=cfg, skip_chunked=route == "host", **kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                total = int(res["alignedlen"].astype(np.int64).sum())
+                sums.setdefault(route, set()).add(total)
+                log(f"long-flank batch, {route} route"
+                    + (f" GENS={g}" if g else "") + f": {dt:.3f}s [{smi}]; "
+                    f"alignedlen sum {total}; lanes K1 "
+                    f"{gb.stats['kernel_lanes']}, K2 "
+                    f"{gb.stats['chunk_lanes']}, host "
+                    f"{gb.stats['host_lanes']}; K2 launches {gc.launches}")
+        if len(sums["K2"] | sums["host"]) != 1:
+            raise SystemExit(f"long-flank alignedlen sums differ: {sums}")
+
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),
+           "K2": ("greedy_chunk", "genometools_torch/csrc/greedy_chunk.cu",
+                  "genometools_tpu/ops/greedy_pallas.py:456"),
            "K3": ("xdrop_full", "genometools_torch/csrc/xdrop_full.cu",
                   "genometools_tpu/ops/xdrop_pallas.py:301")}
     log(json.dumps({"kernels": [
         {"name": f"{kid} {src[kid][0]}", "route": "cuda",
          "source": src[kid][1], "replaces": src[kid][2],
-         "launches": launches[kid], "max_abs_err": kernels[kid]["err"],
-         "ms": kernels[kid]["ms"], "plain_ms": kernels[kid]["plain_ms"]}
-        for kid in ("K1", "K3")]}))
+         "launches": launches[kid], "max_abs_err": kernels[kid].err,
+         "ms": kernels[kid].ms, "plain_ms": kernels[kid].plain_ms,
+         "bound_ms": kernels[kid].bound_ms,
+         "bound_by": kernels[kid].bound_by,
+         # no single PyTorch call computes a greedy or xdrop front
+         "library_ms": None}
+        for kid in ("K1", "K2", "K3")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds),
-loaded with ctypes. The build runs at first use, into ``_build/`` next
+Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded
+with ctypes. The build runs at first use, into ``_build/`` next
 to this file (listed in .gitignore), keyed by a hash of the sources and
 flags. A failed build or load raises: there is no fallback.
 """
@@ -21,12 +22,13 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-lineinfo"]
 
 _lib = None
-build_seconds = 0.0      # wall time of the last nvcc run (0 = cached)
-build_log = ""           # nvcc's output of that run (-Xptxas -v report)
+build_seconds = 0.0      # wall time of the last build (0 = cached)
+build_log = ""           # nvcc's output of that build (-Xptxas -v report)
 
 
 def _nvcc() -> str:
@@ -53,18 +55,40 @@ def _build() -> Path:
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=str(_BUILD)) as td:
-        tmp = Path(td) / "libgtkernels.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
+        objs = [Path(td) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for src, obj in zip(sources, objs)]
+        logs, failed = [], []
+        try:
+            for src, proc in zip(sources, procs):
+                text, _ = proc.communicate(timeout=900)
+                logs.append(f"== {src.name}\n{text}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = Path(td) / "libgtkernels.so"
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True,
+                timeout=300)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{build_log}")
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               f"{build_log}")
         os.replace(tmp, out)
     return out
 
@@ -85,6 +109,12 @@ def lib():
     # int gt_xdrop_full(PK, out, N, W, D, GENS, belowscore, stream)
     L.gt_xdrop_full.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
     L.gt_xdrop_full.restype = ci
+    # int gt_greedy_chunk(P, row, h, hsize, mm, valid, d_lane, done, died,
+    #                     paused, best, urem, vrem, kbase, rowbase, N, W,
+    #                     D, GENS, cut_depth, mmp128, mad, match_score,
+    #                     difference_score, hist_cap, stream)
+    L.gt_greedy_chunk.argtypes = [vp] * 15 + [ci] * 10 + [vp]
+    L.gt_greedy_chunk.restype = ci
     L.gt_cuda_error_string.argtypes = [ci]
     L.gt_cuda_error_string.restype = ctypes.c_char_p
     _lib = L

@@ -1,11 +1,11 @@
 """gt-style command line for the port: ``python -m genometools_torch``.
 
-The flags are the reference's own parsers
-(``genometools_tpu.cli._add_suffixerator`` / ``_add_seed_extend``);
-only the commands are the port's. ``-device {cuda,cpu}`` (default
-cuda) picks where the device work runs; asking for cuda without a card
-fails. Flags the port does not support yet raise instead of being
-ignored.
+The flags are copies of the reference's parsers
+(``genometools_tpu/cli.py`` ``_add_suffixerator`` and
+``_add_seed_extend``), so both tools accept the same command lines.
+``-device {cuda,cpu}`` (default cuda) picks where the device work runs;
+asking for cuda without a card fails. Flags the port does not support
+yet raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -13,7 +13,79 @@ from __future__ import annotations
 import argparse
 import sys
 
-from genometools_tpu.cli import _add_seed_extend, _add_suffixerator
+
+def _add_suffixerator(sub):
+    p = sub.add_parser("suffixerator", help="compute enhanced suffix array")
+    p.add_argument("-db", nargs="+", required=True, help="input sequence files")
+    p.add_argument("-indexname", default=None)
+    p.add_argument("-suf", action="store_true", help="output suffix table")
+    p.add_argument("-lcp", action="store_true", help="output lcp table")
+    p.add_argument("-tis", action="store_true", help="output encoded sequence")
+    p.add_argument("-bwt", action="store_true", help="output BWT table")
+    p.add_argument("-bck", action="store_true", help="output bucket table")
+    p.add_argument("-pl", type=int, nargs="?", const=0, default=0,
+                   help="prefix length (0 = auto)")
+    p.add_argument("-dna", action="store_true")
+    p.add_argument("-protein", action="store_true")
+    p.add_argument("-mirrored", action="store_true")
+    p.add_argument("-ssp", action="store_true")
+    p.add_argument("-des", action="store_true")
+    p.add_argument("-sds", action="store_true",
+                   help="output sequence description separator table")
+    p.add_argument("-md5", action="store_true")
+    p.add_argument("-dir", default="fwd", choices=["fwd", "rev", "cpl", "rcl"])
+    p.add_argument("-parts", type=int, default=1,
+                   help="build the suffix table in N memory-bounded parts")
+    p.add_argument("-memlimit", default=None,
+                   help="memory budget for part planning, e.g. 512MB")
+    p.add_argument("-dist", type=int, default=None, metavar="N",
+                   help="route the suffix sort over an N-device mesh "
+                        "(0 = off; default: all attached devices)")
+    p.add_argument("-showtime", action="store_true")
+    p.add_argument("-v", action="store_true", help="verbose logger")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def _add_seed_extend(sub):
+    p = sub.add_parser("seed_extend", help="seed and extend matching")
+    p.add_argument("-ii", required=True)
+    p.add_argument("-qii", default=None, help="query index (default: self)")
+    p.add_argument("-l", type=int, default=None,
+                   help="minimum alignment len (default: mincoverage)")
+    p.add_argument("-estim", choices=["ANI", "JKD"], default=None)
+    p.add_argument("-snd_pass", action="store_true")  # implied by -estim
+    p.add_argument("-bias-parameters", dest="bias_parameters",
+                   action="store_true")
+    p.add_argument("-delta-filter", dest="delta_filter",
+                   action="store_true")
+    p.add_argument("-noinseqseeds", action="store_true")  # implied
+    p.add_argument("-histogram", default=None)            # accepted, no-op
+    p.add_argument("-cam", default=None)                  # accepted, no-op
+    p.add_argument("-parts", type=int, default=1)
+    p.add_argument("-pick", default=None, help="run one grid cell: a,b")
+    p.add_argument("-diagbandwidth", type=int, default=6)
+    p.add_argument("-seedlength", type=int, default=0)
+    p.add_argument("-spacedseed", type=int, nargs="?", const=0,
+                   default=None,
+                   help="use tuned spaced seeds (optional weight; span "
+                        "= seedlength)")
+    p.add_argument("-minidentity", type=int, default=80)
+    p.add_argument("-extendxdrop", type=int, nargs="?", const=97, default=0)
+    p.add_argument("-extendgreedy", type=int, nargs="?", const=97, default=0)
+    p.add_argument("-maxfreq", type=int, default=None)
+    p.add_argument("-no-reverse", dest="no_reverse", action="store_true")
+    p.add_argument("-history", type=int, default=64)
+    p.add_argument("-percmathistory", type=int, default=None)
+    p.add_argument("-maxalilendiff", type=int, default=None)
+    p.add_argument("-outfmt", nargs="+", default=None)
+    p.add_argument("-maxmat", action="store_true")
+    p.add_argument("-dist", type=int, nargs="?", const=0, default=None,
+                   metavar="N",
+                   help="fan the -parts grid cells out over N mesh "
+                        "devices (0 = all attached devices)")
+    p.add_argument("--cpu", action="store_true")
+    return p
 
 
 def _refuse(args, flags) -> None:
@@ -29,10 +101,9 @@ def _common_refusals(args):
 
 
 def cmd_suffixerator(args):
-    from genometools_tpu.core.encseq import READMODES, Encseq
-    from genometools_tpu.utils.options import Logger, Showtime
-
+    from .core.encseq import READMODES, Encseq
     from .index.esa import build_esa, write_esa
+    from .utils.options import Logger, Showtime
     _common_refusals(args)
     _refuse(args, [("-parts", lambda a: a.parts > 1),
                    ("-memlimit", lambda a: a.memlimit),
@@ -65,8 +136,7 @@ def cmd_suffixerator(args):
 
 
 def cmd_seed_extend(args):
-    from genometools_tpu.core.encseq import Encseq
-
+    from .core.encseq import Encseq
     from .match.seed_extend import SeedExtendParams, _seq_codes, seed_extend
     _common_refusals(args)
     _refuse(args, [("-parts", lambda a: a.parts > 1),
@@ -99,8 +169,7 @@ def cmd_seed_extend(args):
         if o.startswith("alignment="):
             width = int(o.split("=")[1])
     if show_alignment:
-        from genometools_tpu.match.seedext_display import (format_alignment,
-                                                           seeded_alignment)
+        from .match.seedext_display import format_alignment, seeded_alignment
         pol = p.polishing_info()
         pmh, mad = p.greedy_params()
     col_fmts = []
@@ -114,11 +183,11 @@ def cmd_seed_extend(args):
     show_failed = "failed_seed" in outfmt
     ka = None
     if "evalue" in col_fmts or "bitscore" in col_fmts:
-        from genometools_tpu.match.karlin_altschul import KarlinAltschulStat
+        from .match.karlin_altschul import KarlinAltschulStat
         ka = KarlinAltschulStat.new_gapped(aenc.total_length,
                                            aenc.num_sequences)
     if col_fmts:
-        from genometools_tpu.match.seedext_display import match_extra_columns
+        from .match.seedext_display import match_extra_columns
     events = [] if show_failed else None
     result = seed_extend(aenc, benc, p, events=events, device=args.device)
     stream = events if show_failed else [("match", m) for m in result]

@@ -1,0 +1,462 @@
+"""Loader for the native host-side library (``native/gtnative.cpp``).
+
+The port's copy of the parts of ``genometools_tpu/core/native.py`` that
+the port calls: the ctypes loader and the host engines of the
+suffixerator and seed_extend paths (SA-IS and Kasai, FASTA intake, the
+.esq two-bit decoder, k-mer lists, the seed-pair join, the greedy and
+xdrop batches and the fused seed_extend engine). The C++ source is the
+repository's shared ``native/gtnative.cpp``; it is compiled on demand
+with g++ -O3 into ``genometools_torch/_build/`` and loaded via ctypes.
+Every function returns None when the library cannot be built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+_REPO = Path(__file__).resolve().parents[2]
+_SRC = _REPO / "native" / "gtnative.cpp"
+_CACHE = Path(__file__).resolve().parents[1] / "_build"
+
+_lib = None
+_tried = False
+
+def _compile() -> Path | None:
+    if not _SRC.exists():
+        return None
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    out = _CACHE / f"gtnative-{tag}.so"
+    if out.exists():
+        return out
+    _CACHE.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(_CACHE)) as td:
+        tmp = Path(td) / "gtnative.so"
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+               "-pthread", "-std=c++17", str(_SRC), "-o", str(tmp)]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        except (subprocess.SubprocessError, FileNotFoundError):
+            return None
+        os.replace(tmp, out)
+    return out
+
+
+def get_lib():
+    """Return the loaded ctypes library or None."""
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    so = _compile()
+    if so is None:
+        return None
+    lib = ctypes.CDLL(str(so))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    pp = ctypes.POINTER(i32p)
+
+    lib.gt_free.argtypes = [ctypes.c_void_p]
+    lib.gt_kasai_lcp.argtypes = [i32p, i32p, ctypes.c_int64, i32p]
+    lib.gt_xdrop_batch.argtypes = [
+        u8p, i64p, u8p, i64p, ctypes.c_int64, ctypes.c_int64, i64p]
+    lib.gt_greedy_batch.argtypes = [
+        u8p, i64p, u8p, i64p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, i64p, i32p, i32p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int, i64p]
+    lib.gt_sais.argtypes = [i32p, ctypes.c_int64, i32p]
+    lib.gt_seed_pair_join.restype = ctypes.c_int64
+    lib.gt_seed_pair_join.argtypes = [
+        i64p, i32p, i32p, ctypes.c_int64,
+        i64p, i32p, i32p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        pp, pp, pp, pp]
+    try:
+        lib.gt_seed_pair_join2.restype = ctypes.c_int64
+        lib.gt_seed_pair_join2.argtypes = [
+            i64p, i32p, i32p, ctypes.c_int64,
+            i64p, i32p, i32p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, u64p,
+            ctypes.POINTER(u64p), pp, pp, pp, pp]
+    except AttributeError:
+        pass
+    _lib = lib
+    return _lib
+
+
+def _pack_seqs(seqs):
+    """Concatenate uint8 sequences; return (blob, offsets[2n] = (off, len))."""
+    offs = np.zeros(2 * len(seqs), np.int64)
+    pos = 0
+    parts = []
+    for i, s in enumerate(seqs):
+        s = np.ascontiguousarray(s, np.uint8)
+        offs[2 * i] = pos
+        offs[2 * i + 1] = s.size
+        parts.append(s)
+        pos += s.size
+    blob = np.concatenate(parts) if parts else np.zeros(1, np.uint8)
+    return blob, offs
+
+
+def xdrop_batch_native(us, vs, belowscore: int):
+    """Batched xdrop over pairs (us[i], vs[i]). Returns int64[n,3]
+    (ivalue, jvalue, score) or None if no native lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    ublob, uoff = _pack_seqs(us)
+    vblob, voff = _pack_seqs(vs)
+    n = len(us)
+    out = np.zeros(3 * n, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.gt_xdrop_batch(
+        ublob.ctypes.data_as(u8), uoff.ctypes.data_as(i64p),
+        vblob.ctypes.data_as(u8), voff.ctypes.data_as(i64p),
+        n, belowscore, out.ctypes.data_as(i64p))
+    return out.reshape(n, 3)
+
+
+def greedy_batch_native(us, vs, *, max_history, perc_mat_history,
+                        maxalignedlendifference, seedlengths, pol,
+                        trim=True):
+    """Batched greedy front-prune. Returns int64[n,6]
+    (alignedlen, row, distance, max_mismatches, died, touched) —
+    touched=1 means a live front cell hit the u/v window end, so a
+    clipped-window caller must re-run that lane — or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    ublob, uoff = _pack_seqs(us)
+    vblob, voff = _pack_seqs(vs)
+    n = len(us)
+    sl = np.ascontiguousarray(seedlengths, np.int64)
+    out = np.zeros(6 * n, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    dfm = np.ascontiguousarray(pol.diff_from_max, np.int32)
+    ssum = np.ascontiguousarray(pol.score_sum, np.int32)
+    lib.gt_greedy_batch(
+        ublob.ctypes.data_as(u8), uoff.ctypes.data_as(i64p),
+        vblob.ctypes.data_as(u8), voff.ctypes.data_as(i64p),
+        n, max_history, perc_mat_history, maxalignedlendifference,
+        sl.ctypes.data_as(i64p), _i32ptr(dfm), _i32ptr(ssum),
+        pol.cut_depth, pol.mask, 1 if trim else 0,
+        out.ctypes.data_as(i64p))
+    return out.reshape(n, 6)
+
+
+def sais_native(keys) -> np.ndarray | None:
+    """SA-IS linear-time suffix array over int32 suffix keys — the
+    independent second construction path (capability equivalent of
+    `gt dev sain`, ref: src/match/sfx-sain.c:1577). Returns int32[n]
+    or None when the native lib is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    keys = np.ascontiguousarray(keys, np.int32)
+    out = np.empty(keys.size, np.int32)
+    lib.gt_sais(_i32ptr(keys), keys.size, _i32ptr(out))
+    return out
+
+
+def _as_i32(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _i32ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _take_array(lib, ptr, count: int) -> np.ndarray:
+    """Copy a malloc'd int32 array into numpy and free the original."""
+    if count == 0:
+        lib.gt_free(ptr)
+        return np.zeros(0, np.int32)
+    out = np.ctypeslib.as_array(ptr, shape=(count,)).copy()
+    lib.gt_free(ptr)
+    return out
+
+
+def kasai_lcp_native(keys: np.ndarray, sa: np.ndarray) -> np.ndarray | None:
+    lib = get_lib()
+    if lib is None:
+        return None
+    keys = _as_i32(keys)
+    sa = _as_i32(sa)
+    lcp = np.zeros(sa.size, np.int32)
+    lib.gt_kasai_lcp(_i32ptr(keys), _i32ptr(sa), sa.size, _i32ptr(lcp))
+    return lcp
+
+
+# sorted a-list pack reuse across join calls (the two strands of one
+# seed_extend run share alist): keyed by object identity with a
+# liveness check — id() alone can be recycled after GC
+_JOIN_PACK_CACHE: dict = {}
+
+
+def seed_pair_join_native(alist, blist, selfcomp: bool,
+                          maxfreq, inseqseeds: bool, mindist: int,
+                          maxdist):
+    """Seed-pair join (gt_seed_pair_join, the gt_diagbandseed_merge
+    capability — ref: src/match/diagbandseed.c:2654): returns
+    (aseq, bseq, bpos, apos) int64 arrays sorted by
+    (aseq, bseq, bpos, apos), or None when the native lib is absent or
+    the inputs exceed the packed 64-bit budget (caller falls back to
+    the numpy join)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    acode, aseq, apos = alist
+    bcode, bseq, bpos = blist
+    same = blist is alist or acode is bcode
+    if acode.size == 0 or bcode.size == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z
+    # seq/pos must fit int32 planes (wide inputs: numpy fallback)
+    if max(int(aseq.max()), int(bseq.max()), int(apos.max()),
+           int(bpos.max())) >= 2 ** 31:
+        return None
+    ac = np.ascontiguousarray(acode, np.int64)
+    as_ = np.ascontiguousarray(aseq, np.int32)
+    ap = np.ascontiguousarray(apos, np.int32)
+    if same:
+        bc, bs, bp = ac, as_, ap
+    else:
+        bc = np.ascontiguousarray(bcode, np.int64)
+        bs = np.ascontiguousarray(bseq, np.int32)
+        bp = np.ascontiguousarray(bpos, np.int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    oas, obs, obp, oap = i32p(), i32p(), i32p(), i32p()
+    # sorted-pack reuse: fixed (cb, iab=32) budget so the pack is
+    # byte-compatible across the strands sharing this a list
+    use_cache = hasattr(lib, "gt_seed_pair_join2") and \
+        ac.size >= (1 << 20)
+    force_cb = int(ac.max()).bit_length() if use_cache else 0
+    if force_cb == 0 or force_cb + 32 > 64:
+        use_cache = False
+    cached = None
+    if use_cache:
+        ent = _JOIN_PACK_CACHE.get(id(acode))
+        if ent is not None and ent[0]() is acode and \
+                ent[1] == force_cb:
+            cached = ent[2]
+    out_pack = u64p()
+
+    def call(cb, iab, pack_in, want_pack):
+        return lib.gt_seed_pair_join2(
+            ac.ctypes.data_as(i64p), as_.ctypes.data_as(i32p),
+            ap.ctypes.data_as(i32p), ac.size,
+            bc.ctypes.data_as(i64p), bs.ctypes.data_as(i32p),
+            bp.ctypes.data_as(i32p), bc.size,
+            int(same), int(selfcomp), int(inseqseeds),
+            int(maxfreq) if maxfreq is not None else 0,
+            int(mindist), int(maxdist) if maxdist is not None else -1,
+            os.cpu_count() or 1, cb, iab,
+            pack_in.ctypes.data_as(u64p) if pack_in is not None
+            else None,
+            ctypes.byref(out_pack) if want_pack else None,
+            ctypes.byref(oas), ctypes.byref(obs), ctypes.byref(obp),
+            ctypes.byref(oap))
+
+    if use_cache:
+        want = cached is None
+        cnt = call(force_cb, 32, cached, want)
+        if cnt >= 0 and want:
+            import weakref
+            pk = np.ctypeslib.as_array(out_pack,
+                                       shape=(int(ac.size),)).copy()
+            lib.gt_free(out_pack)
+            _JOIN_PACK_CACHE.clear()
+            _JOIN_PACK_CACHE[id(acode)] = (weakref.ref(acode),
+                                           force_cb, pk)
+        if cnt == -2:       # budget mismatch: plain path
+            cnt = call(0, 0, None, False)
+    else:
+        cnt = call(0, 0, None, False) if hasattr(
+            lib, "gt_seed_pair_join2") else lib.gt_seed_pair_join(
+            ac.ctypes.data_as(i64p), as_.ctypes.data_as(i32p),
+            ap.ctypes.data_as(i32p), ac.size,
+            bc.ctypes.data_as(i64p), bs.ctypes.data_as(i32p),
+            bp.ctypes.data_as(i32p), bc.size,
+            int(same), int(selfcomp), int(inseqseeds),
+            int(maxfreq) if maxfreq is not None else 0,
+            int(mindist), int(maxdist) if maxdist is not None else -1,
+            os.cpu_count() or 1,
+            ctypes.byref(oas), ctypes.byref(obs), ctypes.byref(obp),
+            ctypes.byref(oap))
+    if cnt < 0:
+        return None
+    return tuple(_take_array(lib, p, cnt).astype(np.int64)
+                 for p in (oas, obs, obp, oap))
+
+
+def seedext_greedy_run_native(aflat, bflat, a_start, a_len, b_start, b_len,
+                              pa_seq, pb_seq, pb_pos, pa_pos, *, k, amaxlen,
+                              logw, mincov, use_filter, selfcomp, is_p,
+                              max_combine, history, pmh, mad, pol,
+                              errperc, leastlen2, engine=0,
+                              belowscore=0):
+    """Fused seed_extend greedy engine (gt_seedext_greedy_run): the whole
+    per-strand diagband-filter + sequential skip/extend/accept walk over
+    the joined pair lists, flanks extended in place over the flat code
+    arrays (capability of gt_diagbandseed_process_seeds + gt_extend_sesp,
+    ref: src/match/diagbandseed.c:4136).  Returns int64[n, 12] match
+    records in emission order, or None without the lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_seedext_greedy_run
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, u8p, i64p, i64p, i64p, i64p,
+                       i32p, i32p, i32p, i32p,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       i32p, i32p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_int64, ctypes.POINTER(i64p)]
+    aflat = np.ascontiguousarray(aflat, np.uint8)
+    bflat = np.ascontiguousarray(bflat, np.uint8)
+    a_start = np.ascontiguousarray(a_start, np.int64)
+    a_len = np.ascontiguousarray(a_len, np.int64)
+    b_start = np.ascontiguousarray(b_start, np.int64)
+    b_len = np.ascontiguousarray(b_len, np.int64)
+    pa_seq = _as_i32(pa_seq)
+    pb_seq = _as_i32(pb_seq)
+    pb_pos = _as_i32(pb_pos)
+    pa_pos = _as_i32(pa_pos)
+    dfm = np.ascontiguousarray(pol.diff_from_max, np.int32)
+    ssum = np.ascontiguousarray(pol.score_sum, np.int32)
+    out = i64p()
+    cnt = fn(aflat.ctypes.data_as(u8p), bflat.ctypes.data_as(u8p),
+             a_start.ctypes.data_as(i64p), a_len.ctypes.data_as(i64p),
+             b_start.ctypes.data_as(i64p), b_len.ctypes.data_as(i64p),
+             _i32ptr(pa_seq), _i32ptr(pb_seq), _i32ptr(pb_pos),
+             _i32ptr(pa_pos), pa_seq.size, int(k), int(amaxlen),
+             int(logw), int(mincov), int(use_filter), int(selfcomp),
+             int(is_p), int(max_combine), int(history), int(pmh),
+             int(mad), _i32ptr(dfm), _i32ptr(ssum), pol.cut_depth,
+             pol.mask, int(errperc), int(leastlen2), int(engine),
+             int(belowscore), ctypes.byref(out))
+    if cnt < 0:
+        lib.gt_free(out)
+        return None
+    if cnt == 0:
+        lib.gt_free(out)
+        return np.zeros((0, 12), np.int64)
+    recs = np.ctypeslib.as_array(out, shape=(int(cnt) * 12,)).copy()
+    lib.gt_free(out)
+    return recs.reshape(int(cnt), 12)
+
+
+def kmer_list_native(flat, seq_start, seq_len, k: int):
+    """All valid k-windows over per-sequence spans of a flat code array
+    (gt_kmer_list; capability of gt_diagbandseed_get_kmers, ref:
+    src/match/diagbandseed.c:1189). Returns (code int64, seq int32,
+    endpos int32) or None without the lib / k > 31."""
+    lib = get_lib()
+    if lib is None or k > 31:
+        return None
+    try:
+        fn = lib.gt_kmer_list
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+                       i64p, ctypes.POINTER(ctypes.c_int32),
+                       ctypes.POINTER(ctypes.c_int32)]
+    flat = np.ascontiguousarray(flat, np.uint8)
+    seq_start = np.ascontiguousarray(seq_start, np.int64)
+    seq_len = np.ascontiguousarray(seq_len, np.int64)
+    cap = int(np.maximum(seq_len - k + 1, 0).sum())
+    if cap == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                np.zeros(0, np.int32))
+    code = np.empty(cap, np.int64)
+    seq = np.empty(cap, np.int32)
+    pos = np.empty(cap, np.int32)
+    n = fn(flat.ctypes.data_as(u8p), seq_start.ctypes.data_as(i64p),
+           seq_len.ctypes.data_as(i64p), seq_start.size, int(k),
+           code.ctypes.data_as(i64p), _i32ptr(seq), _i32ptr(pos))
+    return code[:n], seq[:n], pos[:n]
+
+
+def twobit_decode_native(words: np.ndarray, total: int):
+    """Decode the .esq 2-bit plane (gt_twobit_decode) — threaded LUT
+    stores. Returns uint8[total] or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_twobit_decode
+    except AttributeError:
+        return None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, u8p]
+    wb = np.ascontiguousarray(words).view(np.uint8)
+    nwords = wb.size // 8
+    out = np.empty(nwords * 32, np.uint8)
+    fn(wb.ctypes.data_as(u8p), nwords, total, out.ctypes.data_as(u8p))
+    return out[:total]
+
+
+def fasta_encseq_native(data: bytes, lut: np.ndarray):
+    """One-pass FASTA -> encseq codes (gt_fasta_encseq): payload bytes
+    mapped through the given 256-entry alphabet LUT, SEPARATOR between
+    sequences, headers as byte spans. Returns (codes u8, lens i64,
+    hdr_start i64, hdr_end i64, seen u8[256]) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_fasta_encseq
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, ctypes.c_int64, u8p, u8p, i64p, i64p,
+                       i64p, u8p, i64p]
+    buf = np.frombuffer(data, np.uint8)
+    lut = np.ascontiguousarray(lut, np.uint8)
+    codes = np.empty(buf.size + 1, np.uint8)
+    cap = buf.size // 2 + 2
+    lens = np.empty(cap, np.int64)
+    hs = np.empty(cap, np.int64)
+    he = np.empty(cap, np.int64)
+    seen = np.zeros(256, np.uint8)
+    cl = np.zeros(1, np.int64)
+    ns = fn(buf.ctypes.data_as(u8p), buf.size,
+            lut.ctypes.data_as(u8p), codes.ctypes.data_as(u8p),
+            lens.ctypes.data_as(i64p), hs.ctypes.data_as(i64p),
+            he.ctypes.data_as(i64p), seen.ctypes.data_as(u8p),
+            cl.ctypes.data_as(i64p))
+    return (codes[:int(cl[0])], lens[:ns], hs[:ns], he[:ns], seen)

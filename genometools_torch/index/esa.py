@@ -21,10 +21,9 @@ from pathlib import Path
 
 import numpy as np
 
-from genometools_tpu.core.chardef import is_special
-from genometools_tpu.core.encseq import FWD, Encseq
-from genometools_tpu.core.native import kasai_lcp_native, sais_native
-
+from ..core.chardef import is_special
+from ..core.encseq import FWD, Encseq
+from ..core.native import kasai_lcp_native, sais_native
 from .suffix import build_suffix_array
 
 LCP_OVERFLOW = 255

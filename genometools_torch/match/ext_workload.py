@@ -22,8 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from genometools_tpu.core.encseq import Encseq
-
+from ..core.encseq import Encseq
 from .seed_extend import (SeedExtendParams, _seq_codes, build_seed_pairs,
                           default_seedlength, enumerate_kmers)
 

@@ -1,5 +1,5 @@
 """seed_extend: k-mer seeding, diagonal-band filtering and extension,
-with the extensions batched through K1 (greedy) and K3 (xdrop).
+with the extensions batched through K1 and K2 (greedy) and K3 (xdrop).
 
 Counterpart of ``genometools_tpu/match/seed_extend.py`` (ref:
 src/match/diagbandseed.c:5734 gt_diagbandseed_run, seed-extend.c:994
@@ -12,9 +12,14 @@ does not rule out is extended in one batch, and the exact sequential
 accept loop then consumes the results — a mispredicted skip only
 starts a new wave, so the output equals the sequential engine's.
 
-The device path is the path: on a CUDA device the waves run K1 and
-K3, on the CPU their plain versions. The reference's fused host C++
-engine (``_native_segment_recs``) is reachable only as
+The device path is the path: on a CUDA device the waves run K1, K2
+and K3, on the CPU their plain versions. Greedy flanks longer than
+K1's windows go through the windowed chunk loop and K2
+(``skip_chunked=False``), where the reference's wave path sends them
+to the host engine (its match/seed_extend.py:617-625, for a cost
+measured on the TPU); the lines are the same either way. The
+reference's fused host C++ engine (``_native_segment_recs``) is
+reachable only as
 ``seed_extend(..., engine="fused")``; it is the oracle the tests and
 chip_smoke.py compare against. Not ported yet: the -parts grid and
 -maxmat (``maximal_exact_matches``).
@@ -27,21 +32,16 @@ from dataclasses import dataclass, field, fields
 
 import numpy as np
 
-from genometools_tpu.core.chardef import is_special
-from genometools_tpu.core.encseq import Encseq
-from genometools_tpu.core.native import (greedy_batch_native,
-                                         kmer_list_native,
-                                         seed_pair_join_native,
-                                         seedext_greedy_run_native,
-                                         xdrop_batch_native)
-from genometools_tpu.ops.greedy import (PolishingInfo, greedy_extend,
-                                        greedy_params_table)
-from genometools_tpu.ops.xdrop import (XdropScores, optimal_xdrop_belowscore,
-                                       xdrop_extend)
-
+from ..core.chardef import is_special
+from ..core.encseq import Encseq
+from ..core.native import (greedy_batch_native, kmer_list_native,
+                           seed_pair_join_native, seedext_greedy_run_native,
+                           xdrop_batch_native)
 from ..device import resolve_device
+from ..ops.greedy import PolishingInfo, greedy_extend, greedy_params_table
 from ..ops.greedy_batch import greedy_extend_batch_pool, upload_pool
 from ..ops.kmer import kmer_codes_np, spaced_kmer_codes_np
+from ..ops.xdrop import XdropScores, optimal_xdrop_belowscore, xdrop_extend
 from ..ops.xdrop_batch import xdrop_extend_batch_pool
 
 # candidate seeds per extension wave: on the H100 the at1MB run takes
@@ -78,8 +78,7 @@ class SeedExtendParams:
         src/match/dbs_spaced_seeds.c) or None for contiguous seeds."""
         if self.spacedseedweight is None:
             return None
-        from genometools_tpu.ops.spaced_seeds_tab import (seed_for,
-                                                          weight_range)
+        from ..ops.spaced_seeds_tab import seed_for, weight_range
         w = self.spacedseedweight
         lo, hi = weight_range(k)
         if w == 0:                      # reference: weight = default
@@ -112,10 +111,14 @@ class SeedExtendParams:
 
 def params_from_reference(p) -> SeedExtendParams:
     """The port's parameters from a reference SeedExtendParams (or any
-    object carrying its fields)."""
-    return SeedExtendParams(**{f.name: getattr(p, f.name)
-                               for f in fields(SeedExtendParams)
-                               if hasattr(p, f.name)})
+    object carrying its fields); the xdrop scores become the port's own
+    XdropScores."""
+    kw = {f.name: getattr(p, f.name) for f in fields(SeedExtendParams)
+          if hasattr(p, f.name)}
+    if "scores" in kw:
+        kw["scores"] = XdropScores(**{f.name: getattr(kw["scores"], f.name)
+                                      for f in fields(XdropScores)})
+    return SeedExtendParams(**kw)
 
 
 @dataclass
@@ -325,10 +328,13 @@ def _batch_extensions(cands, k, greedy_ctx, belowscore, pool, gp, device):
         while pending.size:
             offs = offsets(cap, lanes[pending])
             rev = np.full(pending.size, rev_side)
+            # skip_chunked=False: flanks longer than K1's windows run
+            # through the chunk loop and K2 (the reference's wave path
+            # skips that route for a TPU-only cost; see ops/greedy_batch)
             r = greedy_extend_batch_pool(
                 pool, *offs, rev, seedlengths=k, perc_mat_history=pmh,
                 maxalignedlendifference=mad, pol_info=pol, history=history,
-                device=device, gp=gp)
+                device=device, gp=gp, skip_chunked=False)
             al, row = r["alignedlen"].astype(np.int64), r["row"]
             dist, mm, touched = r["distance"], r["mismatches"], r["touched"]
             retry = (maxflank[pending] > cap) & \

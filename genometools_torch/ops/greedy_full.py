@@ -124,36 +124,56 @@ def match_run(M: torch.Tensor, row: torch.Tensor,
     return total
 
 
-def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
-                      match_score: int, difference_score: int,
-                      hist_cap: int, W: int, D: int, GENS: int,
-                      cut_depth: int = 15) -> torch.Tensor:
-    """Plain PyTorch version of K1 (same inputs and (7, N) result)."""
-    dev = PK.device
-    N = PK.shape[0]
-    W32 = W // 32
+def front_plain(P: torch.Tensor, st: dict, sc: tuple, W: int, D: int,
+                GENS: int, run_first: bool, counts: dict | None = None
+                ) -> dict:
+    """The front recurrence of K1 and K2, lane-vectorised over (N, K).
+
+    P: (N, 6, W32) plane words of the U and V windows. st: the input
+    state — per slot (N, K): row, hlo, hhi, hs, mm (int64), valid
+    (bool); per lane (N, 1): d_lane, urem, vrem, kbase, rowbase (int64),
+    done, died (bool), best (a list of four int64 columns: alignedlen,
+    row, distance, mismatches). Rows and diagonals are relative to the
+    window (kbase = dv - du, rowbase = du); alignedlen is absolute
+    (albase = 2*rowbase + kbase). sc: (mmp128, mad, match_score,
+    difference_score, hist_cap, cut_depth).
+
+    The input state is scored first (trim, polished point, completion;
+    idempotent on a scored state), after one match run when run_first
+    (K1's generation 0); then up to gens_cap(GENS) generations run. A
+    generation whose front touches the window or the slot edge is
+    rolled back and the lane pauses. Returns the same keys plus
+    `paused` (N, 1). counts, when a dict, gains under "slot_gens" the
+    live slots summed over every lane's generations (the work the
+    data needs, for a kernel's operation bound)."""
+    mmp128, mad, match_score, difference_score, hist_cap, cut_depth = sc
+    dev = P.device
+    N, _, W32 = P.shape
     K = 2 * D + 1
     pol_size = 2 * cut_depth
-    P = from_i32_bits(PK[:, :6 * W32]).reshape(N, 6, W32)
-    cols = PK[:, 6 * W32:6 * W32 + 3].to(torch.int64)
-    seedl, urem, vrem = cols[:, 0:1], cols[:, 1:2], cols[:, 2:3]
-    M = match_words(P, W, D)
     sidx = torch.arange(K, device=dev).view(1, K)
     karr = sidx - D
-    ulen_c = urem.clamp(max=W)
-    vlen_c = vrem.clamp(max=W)
-    u_more = urem > W
-    v_more = vrem > W
     hmask_lo, hmask_hi = ones64(torch.tensor(hist_cap, device=dev))
     i64 = dict(dtype=torch.int64, device=dev)
     # the polishing walk of every cut_depth-bit prefix, looked up per slot
     pol_dfm, pol_ss = polish_walk(torch.arange(1 << cut_depth, **i64),
                                   match_score, difference_score, cut_depth)
+    # s: the working set (lanes still running); per-lane constants ride
+    # along so that finished lanes can be dropped from every array
+    s = dict(st)
+    s["M"] = match_words(P, W, D)
+    s["ulen_c"] = s["urem"].clamp(max=W)
+    s["vlen_c"] = s["vrem"].clamp(max=W)
+    s["u_more"] = s["urem"] > W
+    s["v_more"] = s["vrem"] > W
+    s["albase"] = 2 * s["rowbase"] + s["kbase"]
+    best = s.pop("best")
+    s.update({f"best{i}": b for i, b in enumerate(best)})
 
     def add_matches(row, hlo, hhi, hs, valid):
         # a run of c matches shifts c ones into the history: the kernel
         # does it 32 at a time, which composes to one shift by the total
-        c = match_run(M, row, valid & (row >= 0) & (row < W))
+        c = match_run(s["M"], row, valid & (row >= 0) & (row < W))
         olo, ohi = ones64(c)
         slo, shi = shl64(hlo, hhi, c)
         return (row + c, slo | olo, shi | ohi,
@@ -167,12 +187,13 @@ def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
 
     def trim_and_score(row, hlo, hhi, hs, mm, valid, d, best, done):
         rsafe = row.clamp(min=0)
-        alignedlen = torch.where(valid, 2 * rsafe + karr, NEGINF)
+        alignedlen = torch.where(valid, 2 * rsafe + karr + s["albase"],
+                                 NEGINF)
         maxal = alignedlen.amax(dim=1, keepdim=True)
         minlen = (maxal - mad).clamp(min=0)
         need = (hs * mmp128) >> 7
-        keep = valid & (row <= ulen_c) & (row + karr <= vlen_c) & \
-            (alignedlen >= minlen) & \
+        keep = valid & (row <= s["ulen_c"]) & \
+            (row + karr <= s["vlen_c"]) & (alignedlen >= minlen) & \
             (popcount64(hlo & hmask_lo, hhi & hmask_hi) >= need)
         anyk = keep.any(dim=1, keepdim=True)
         first = first_slot(keep)
@@ -192,14 +213,18 @@ def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
         fidx = first_slot(cand == cbest)
         better = cbest > best[0]
         best = [torch.where(better, cbest, best[0]),
-                torch.where(better, take(rsafe, fidx), best[1]),
+                torch.where(better, take(rsafe, fidx) + s["rowbase"],
+                            best[1]),
                 torch.where(better, d, best[2]),
                 torch.where(better, take(mm, fidx), best[3])]
 
+        # completion: the front reaches (urem, vrem) on the end diagonal
+        urem, vrem = s["urem"], s["vrem"]
         e_rel = vrem - urem
         eidx = (e_rel + D).clamp(0, K - 1)
         inband = (e_rel >= -D) & (e_rel <= D)
-        ok_k = ((e_rel).abs() <= d) & inband & take(valid, eidx) & \
+        ok_k = ((e_rel + s["kbase"]).abs() <= d) & inband & \
+            take(valid, eidx) & \
             (take(row, eidx) == torch.where(inband, urem, NEGINF))
         complete_now = ok_k & ~done
         return valid, best, died_now, complete_now
@@ -211,39 +236,36 @@ def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
             return torch.cat([pad, a[:, :-1]], dim=1)
         return torch.cat([a[:, 1:], pad], dim=1)
 
-    # generation 0: the seed's all-match history at the centre slot,
-    # then its first match run
-    center = (sidx == D).expand(N, K)
-    slo0, shi0 = ones64(seedl)
-    row = torch.where(center, 0, NEGINF).to(torch.int64)
-    hlo = torch.where(center, slo0, 0)
-    hhi = torch.where(center, shi0, 0)
-    hs = torch.where(center, seedl.clamp(max=hist_cap), 0)
-    mm = torch.zeros(N, K, **i64)
-    valid = center.clone()
-    row, hlo, hhi, hs = add_matches(row, hlo, hhi, hs, valid)
-    zero = torch.zeros(N, 1, **i64)
-    done = torch.zeros(N, 1, dtype=torch.bool, device=dev)
-    d_lane = zero.clone()
-    best = [zero.clone(), zero.clone(), zero.clone(), zero.clone()]
-    valid, best, died_now, complete_now = trim_and_score(
-        row, hlo, hhi, hs, mm, valid, d_lane, best, done)
-    died = died_now.clone()
-    done = done | died_now | complete_now
-    paused = torch.zeros_like(done)
+    def bests():
+        return [s[f"best{i}"] for i in range(4)]
 
-    # a lane that is done or paused has its final outputs: write them to
+    def set_bests(b):
+        s.update({f"best{i}": x for i, x in enumerate(b)})
+
+    if run_first:
+        s["row"], s["hlo"], s["hhi"], s["hs"] = add_matches(
+            s["row"], s["hlo"], s["hhi"], s["hs"], s["valid"])
+    s["valid"], b, died_now, complete_now = trim_and_score(
+        s["row"], s["hlo"], s["hhi"], s["hs"], s["mm"], s["valid"],
+        s["d_lane"], bests(), s["done"])
+    set_bests(b)
+    s["died"] = s["died"] | died_now
+    s["done"] = s["done"] | died_now | complete_now
+    s["paused"] = torch.zeros_like(s["done"])
+
+    # a lane that is done or paused has its final state: write it to
     # `final` and drop the lane from the working set once half are idle
+    out_keys = ("row", "hlo", "hhi", "hs", "mm", "valid", "d_lane", "done",
+                "died", "paused", "best0", "best1", "best2", "best3")
+    final = {k: s[k].clone() for k in out_keys}
     lanes = torch.arange(N, device=dev)
-    final = torch.zeros(N, 6, **i64)
 
     def flush(mask):
-        final[lanes[mask]] = torch.cat(
-            [*best, done.to(torch.int64), died.to(torch.int64)],
-            dim=1)[mask]
+        for k in out_keys:
+            final[k][lanes[mask]] = s[k][mask]
 
     for _ in range(gens_cap(GENS)):
-        act = ~done & ~paused
+        act = ~s["done"] & ~s["paused"]
         nact = int(act.sum())
         if nact == 0:
             break
@@ -251,13 +273,11 @@ def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
             flush(~act[:, 0])
             keep = act[:, 0]
             lanes = lanes[keep]
-            row, hlo, hhi, hs, mm, valid, done, died, paused, d_lane, M, \
-                urem, vrem, ulen_c, vlen_c, u_more, v_more, act = (
-                    a[keep] for a in (
-                        row, hlo, hhi, hs, mm, valid, done, died, paused,
-                        d_lane, M, urem, vrem, ulen_c, vlen_c, u_more,
-                        v_more, act))
-            best = [b[keep] for b in best]
+            for k in s:
+                s[k] = s[k][keep]
+            act = act[keep]
+        row, hlo, hhi, hs, mm, valid = (s[k] for k in (
+            "row", "hlo", "hhi", "hs", "mm", "valid"))
         v_ins = sh(valid, False, 1)
         v_del = sh(valid, False, -1)
         r_ins = torch.where(v_ins, sh(row, 0, 1), NEGINF)
@@ -265,6 +285,9 @@ def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
         r_del = torch.where(v_del, sh(row, 0, -1) + 1, NEGINF)
         r_new = torch.maximum(torch.maximum(r_ins, r_mis), r_del)
         anyc = r_new > NEGINF
+        if counts is not None:
+            counts["slot_gens"] = counts.get("slot_gens", 0) + \
+                int((anyc & act).sum())
         use_ins = v_ins & (r_ins == r_new)
         use_mis = valid & (r_mis == r_new) & ~use_ins
         use_del = v_del & (r_del == r_new) & ~use_ins & ~use_mis
@@ -292,31 +315,63 @@ def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
         row_n = torch.where(anyc, r_new, NEGINF)
         row_n, hlo_n, hhi_n, hs_n = add_matches(row_n, hlo_n, hhi_n, hs_n,
                                                 anyc)
-        contact = (anyc & ((u_more & (row_n >= W))
-                           | (v_more & (row_n + karr >= W))
+        contact = (anyc & ((s["u_more"] & (row_n >= W))
+                           | (s["v_more"] & (row_n + karr >= W))
                            | (sidx <= 0) | (sidx >= K - 1))) \
             .any(dim=1, keepdim=True)
         pause_now = act & contact
         commit = act & ~contact
-        d_next = torch.where(commit, d_lane + 1, d_lane)
+        d_next = torch.where(commit, s["d_lane"] + 1, s["d_lane"])
         valid_n, best_n, died_now, complete_now = trim_and_score(
-            row_n, hlo_n, hhi_n, hs_n, mm_n, anyc, d_next, best,
-            done | pause_now | ~act)
-        row = torch.where(commit, row_n, row)
-        hlo = torch.where(commit, hlo_n, hlo)
-        hhi = torch.where(commit, hhi_n, hhi)
-        hs = torch.where(commit, hs_n, hs)
-        mm = torch.where(commit, mm_n, mm)
-        valid = torch.where(commit, valid_n, valid)
-        best = [torch.where(commit, bn, b) for bn, b in zip(best_n, best)]
-        died = died | (commit & died_now)
-        done = done | (commit & (died_now | complete_now))
-        paused = paused | pause_now
-        d_lane = d_next
+            row_n, hlo_n, hhi_n, hs_n, mm_n, anyc, d_next, bests(),
+            s["done"] | pause_now | ~act)
+        for k, v in (("row", row_n), ("hlo", hlo_n), ("hhi", hhi_n),
+                     ("hs", hs_n), ("mm", mm_n), ("valid", valid_n)):
+            s[k] = torch.where(commit, v, s[k])
+        set_bests([torch.where(commit, bn, b)
+                   for bn, b in zip(best_n, bests())])
+        s["died"] = s["died"] | (commit & died_now)
+        s["done"] = s["done"] | (commit & (died_now | complete_now))
+        s["paused"] = s["paused"] | pause_now
+        s["d_lane"] = d_next
 
     flush(torch.ones_like(lanes, dtype=torch.bool))
-    done_i = final[:, 4:5]
-    out = torch.cat([final[:, :4], done_i, final[:, 5:6] & done_i,
+    final["best"] = [final.pop(f"best{i}") for i in range(4)]
+    return final
+
+
+def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
+                      match_score: int, difference_score: int,
+                      hist_cap: int, W: int, D: int, GENS: int,
+                      cut_depth: int = 15,
+                      counts: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same inputs and (7, N) result);
+    counts: see front_plain."""
+    dev = PK.device
+    N = PK.shape[0]
+    W32 = W // 32
+    K = 2 * D + 1
+    P = from_i32_bits(PK[:, :6 * W32]).reshape(N, 6, W32)
+    cols = PK[:, 6 * W32:6 * W32 + 3].to(torch.int64)
+    seedl = cols[:, 0:1]
+    i64 = dict(dtype=torch.int64, device=dev)
+    # generation 0: the seed's all-match history at the centre slot
+    center = (torch.arange(K, device=dev) == D).view(1, K).expand(N, K)
+    slo0, shi0 = ones64(seedl)
+    zero = torch.zeros(N, 1, **i64)
+    false = torch.zeros(N, 1, dtype=torch.bool, device=dev)
+    st = dict(row=torch.where(center, 0, NEGINF).to(torch.int64),
+              hlo=torch.where(center, slo0, 0),
+              hhi=torch.where(center, shi0, 0),
+              hs=torch.where(center, seedl.clamp(max=hist_cap), 0),
+              mm=torch.zeros(N, K, **i64), valid=center.clone(),
+              d_lane=zero, done=false, died=false, urem=cols[:, 1:2],
+              vrem=cols[:, 2:3], kbase=zero, rowbase=zero,
+              best=[zero] * 4)
+    f = front_plain(P, st, (mmp128, mad, match_score, difference_score,
+                            hist_cap, cut_depth), W, D, GENS, True, counts)
+    done_i = f["done"].to(torch.int64)
+    out = torch.cat([*f["best"], done_i, f["died"].to(torch.int64) & done_i,
                      1 - done_i], dim=1)
     return out.T.contiguous().to(torch.int32)
 

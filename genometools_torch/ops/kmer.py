@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from genometools_tpu.core.chardef import SPECIAL_MIN
+from ..core.chardef import SPECIAL_MIN
 
 
 def kmer_codes_np(codes: np.ndarray, k: int, num_chars: int = 4):

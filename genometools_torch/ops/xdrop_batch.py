@@ -7,7 +7,7 @@ Counterpart of ``genometools_tpu/ops/xdrop_batch.py``'s device paths
 them; lanes longer than 512, lanes whose end diagonal lies outside the
 D=32 band, and lanes K3 reports unsafe re-run on the exact host engine
 (``_host_exact``), so the merged result is bit-equal to the scalar
-engine ``genometools_tpu.ops.xdrop.xdrop_extend`` on every lane.
+engine ``ops/xdrop.py::xdrop_extend`` on every lane.
 """
 
 from __future__ import annotations
@@ -15,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genometools_tpu.core.native import xdrop_batch_native
-
+from ..core.native import xdrop_batch_native
 from ..device import resolve_device
 from .greedy_batch import pk_from_pool, pool_flanks, upload_pool
 from .xdrop_full import xdrop_full

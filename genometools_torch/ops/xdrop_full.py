@@ -47,8 +47,11 @@ def _run_extend(M: torch.Tensor, row: torch.Tensor, valid: torch.Tensor,
 
 
 def xdrop_full_plain(PK: torch.Tensor, belowscore: int, W: int, D: int,
-                     GENS: int) -> torch.Tensor:
-    """Plain PyTorch version of K3 (same inputs and (4, N) result)."""
+                     GENS: int, counts: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K3 (same inputs and (4, N) result).
+    counts, when a dict, gains under "slot_gens" the candidate slots
+    (lb-1 .. ub+1) summed over every lane's generations (the work the
+    data needs, for the kernel's operation bound)."""
     dev = PK.device
     N = PK.shape[0]
     W32 = W // 32
@@ -85,6 +88,9 @@ def xdrop_full_plain(PK: torch.Tensor, belowscore: int, W: int, D: int,
         active = lb <= ub
         if not bool(active.any()):
             break
+        if counts is not None:
+            counts["slot_gens"] = counts.get("slot_gens", 0) + \
+                int(torch.where(active, ub - lb + 3, 0).sum())
         dd = d - 1
         del_row = torch.cat([neg, row[:, :-1]], dim=1)         # row[k-1]
         ins_row = torch.cat([row[:, 1:], neg], dim=1)          # row[k+1]

@@ -114,9 +114,9 @@ def test_pool_batch_matches_reference(monkeypatch):
 
 
 def test_batch_matches_scalar_with_host_routing():
-    """Tiny passes force undone lanes onto the C++ host route; every
-    lane must still equal the scalar engine, and the lane counts must
-    add up."""
+    """Tiny passes force undone lanes onto the C++ host route (the chunk
+    chunk loop skipped); every lane must still equal the scalar engine, and
+    the lane counts must add up."""
     from genometools_tpu.ops.greedy import greedy_extend
 
     class Tiny(tgb.GreedyBatchConfig):
@@ -130,8 +130,9 @@ def test_batch_matches_scalar_with_host_routing():
     res = tgb.greedy_extend_batch(
         us, vs, seedlengths=14, perc_mat_history=PMH,
         maxalignedlendifference=MAD, pol_info=pol, history=HIST,
-        cfg=Tiny(), device="cpu")
+        cfg=Tiny(), device="cpu", skip_chunked=True)
     assert tgb.stats["kernel_lanes"] + tgb.stats["host_lanes"] == len(us)
+    assert tgb.stats["chunk_lanes"] == 0
     assert tgb.stats["kernel_lanes"] > 0 and tgb.stats["host_lanes"] > 0
     for i in range(len(us)):
         _, best = greedy_extend(

@@ -146,3 +146,33 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tse.seed_extend(enc, None, tse.SeedExtendParams(parts=2),
                         device="cpu")
+
+
+def test_planted_repeats_take_the_chunk_route(monkeypatch, tmp_path):
+    """A small g4m_planted_repeats-style genome (2 x 50 kbp, six repeats
+    of 3-8 kbp): the greedy flanks are longer than K1's windows, so the
+    wave path runs the windowed chunk loop (K2's plain version here),
+    and the lines equal the fused engine's and the reference's."""
+    from genometools_tpu.core.encseq import Encseq as RefEncseq
+    from genometools_tpu.match import seed_extend as rse
+
+    from genometools_torch.core.encseq import Encseq
+    from genometools_torch.ops import greedy_batch as tgb
+    from genometools_torch.utils.synthetic import planted_repeats, write_fasta
+    monkeypatch.delenv("GT_TPU_DEVICE_EXTEND", raising=False)
+    fna = tmp_path / "g.fna"
+    write_fasta(planted_repeats(seed=11, length=50_000, repeats=6,
+                                replen=(3_000, 8_000), wildcard_runs=2), fna)
+    p = rse.SeedExtendParams(extension="greedy", seedlength=14,
+                             minidentity=80, userdefinedleastlength=500)
+    ref = [m.line() for m in rse.seed_extend(
+        RefEncseq.from_files([str(fna)]), None, p)]
+    enc = Encseq.from_files([str(fna)])
+    fused = [m.line() for m in tse.seed_extend(
+        enc, None, tse.params_from_reference(p), engine="fused")]
+    tgb.reset_stats()
+    # small waves: fewer seeds extended speculatively on the CPU
+    got = [m.line() for m in tse.seed_extend(
+        enc, None, tse.params_from_reference(p), device="cpu", wave=32)]
+    assert got == fused == ref and ref
+    assert tgb.stats["chunk_lanes"] > 0

@@ -1,0 +1,89 @@
+"""genometools_torch stands alone: no module of the port, and not
+chip_smoke.py, imports the reference package or JAX, and the port's
+suffixerator and seed_extend commands run in a process where both are
+blocked, printing what the reference's CLI prints for the same
+arguments."""
+
+import ast
+import contextlib
+import io
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+GOLDEN = ROOT / "tests" / "golden_esa"
+BLOCKED = ("jax", "genometools_tpu")
+
+
+def _imported(path: Path):
+    """Top-level names of every absolute import in a source file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_imports_the_reference_or_jax():
+    files = sorted((ROOT / "genometools_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imported(p) if m in BLOCKED]
+    assert len(files) > 30
+    assert not bad, bad
+
+
+# each command as the port runs it; the reference takes --cpu instead
+# of -device cpu
+COMMANDS = [
+    ["suffixerator", "-db", "in.fa", "-indexname", "idx", "-suf", "-lcp",
+     "-tis"],
+    ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
+     "-extendgreedy", "-outfmt", "alignment"],
+    ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
+     "-extendxdrop", "-outfmt", "evalue", "bitscore"],
+]
+
+
+def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
+    from genometools_tpu.cli import main as ref_main
+
+    from genometools_torch.core.encseq import Encseq
+    enc = Encseq.load(str(GOLDEN / "Duplicate.fna" / "idx"))
+    lut = np.frombuffer(b"acgtn", np.uint8)
+    with open(tmp_path / "in.fa", "wb") as f:
+        for s in range(enc.num_sequences):
+            lo, hi = int(enc.seq_startpos(s)), int(enc.seq_endpos(s))
+            c = enc.codes[lo:hi + 1]
+            f.write(b">" + enc.descs[s].encode("latin-1") + b"\n")
+            f.write(lut[np.where(c < 4, c, 4)].tobytes() + b"\n")
+    script = (
+        "import sys\n"
+        + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED) +
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from genometools_torch.cli import main\n"
+        f"for argv in {COMMANDS!r}:\n"
+        "    main(argv + ['-device', 'cpu'])\n"
+        "    print('#--', flush=True)\n"
+        f"assert all(sys.modules[m] is None for m in {BLOCKED!r})\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = out.stdout.split("#--\n")[:len(COMMANDS)]
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        for argv, text in zip(COMMANDS[1:], got[1:]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                ref_main(argv + ["--cpu"])
+            assert text == buf.getvalue() and text, argv
+    finally:
+        os.chdir(cwd)

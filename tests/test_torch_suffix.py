@@ -76,7 +76,7 @@ def _write_fasta(enc, path):
 
 def test_cli_runs_without_jax(tmp_path):
     """suffixerator + seed_extend through `genometools_torch.cli` in a
-    process where importing jax fails."""
+    process where importing jax or genometools_tpu fails."""
     from genometools_tpu.core.encseq import Encseq
 
     from genometools_torch.match.seed_extend import (SeedExtendParams,
@@ -86,6 +86,7 @@ def test_cli_runs_without_jax(tmp_path):
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['genometools_tpu'] = None\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from genometools_torch.cli import main\n"
