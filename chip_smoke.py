@@ -1,13 +1,17 @@
 """Drive genometools_torch's main path once on one CUDA card.
 
-    python3 chip_smoke.py [--gens 48,384,1536]
+    python3 chip_smoke.py [--gens 48,384,1536] [--profile]
 
 Run from the root of a checkout. Phases, each printed with its seconds:
 
-  1. setup: build the CUDA kernels from genometools_torch/csrc;
-  2. K1 (greedy), K2 (greedy chunk) and K3 (xdrop) against their plain
-     PyTorch versions on the card, at every shape the main paths launch
-     (exact: tolerance 0, the outputs are integers);
+  1. setup: build the CUDA kernels from genometools_torch/csrc; the
+     resident kernel's occupancy at each window tier;
+  2. K1 (greedy), K2 (greedy chunk), K2r (the resident K2) and K3
+     (xdrop) against their plain PyTorch versions on the card, at every
+     shape the main paths launch; K2r with window tiers up to each tier
+     (the shared memory it holds), under the default and weak trims, so
+     that each run covers its widest tier and the weak runs both slot
+     tiers (exact: tolerance 0, the outputs are integers);
   3. `python -m genometools_torch suffixerator -suf -lcp -tis` on the
      at1MB test genome: .suf/.lcp/.llv must equal gt's goldens;
   4. the suffix array of a 32 Mbp synthetic genome on the card against
@@ -22,10 +26,14 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      planted repeats, numpy seed 2026): (a) the suffixerator and
      seed_extend -extendgreedy CLI against the fused host engine, with
      the launch counts read around the seed_extend run (the main path
-     of K2); (b) 65,536 flank tasks of its extension workload, clipped
-     at 16,384, through the chunk loop and K2 and through the host
-     engine (skip_chunked), in turns: equal alignedlen sums. --gens
-     repeats the K2 route at other chunk GENS.
+     of K2r; K2 must not run there); (b) 65,536 flank tasks of its
+     extension workload, clipped at 16,384, through three routes in
+     turns: the resident kernel, the host-driven chunk loop with K2
+     (RESIDENT = False; K2's launches are read around this route's first
+     run) and the host engine (skip_chunked): equal alignedlen sums; then
+     K2r against its plain version on all 65,536 tasks, lane by lane (a
+     main-path lane count: each resident warp takes some 40 lanes from
+     the queue). --gens repeats the two K2 routes at other chunk GENS.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -63,6 +71,7 @@ ROOT = Path(__file__).resolve().parent
 AT1MB = ROOT / "tests" / "golden_esa" / "at1MB" / "idx"
 GREEDY_ANCHOR = (530140, 157827064)
 XDROP_ANCHOR = (65536, 17549780)
+LONG_ANCHOR = 85172588          # phase 7b's alignedlen sum
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # integer operations one live slot needs per generation, at the least:
@@ -70,7 +79,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # from the six planes and its run, the trim tests (greedy); the
 # candidate pick, the prune test, one match word and the score (xdrop).
 # The polishing walk and the warp reductions are not counted.
-OPS_PER_SLOT_GEN = {"K1": 64, "K2": 64, "K3": 48}
+OPS_PER_SLOT_GEN = {"K1": 64, "K2": 64, "K2r": 64, "K3": 48}
 
 
 def log(msg: str) -> None:
@@ -99,10 +108,10 @@ def ptxas_summary(build_log: str) -> dict:
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"entry function '\S*?(greedy_full_kernel|"
-                      r"greedy_chunk_kernel|xdrop_full_kernel)ILi(\d+)E",
-                      line)
+                      r"greedy_chunk_kernel|xdrop_full_kernel|"
+                      r"greedy_resident_kernel)(?:ILi(\d+)E)?", line)
         if m:
-            cur = out.setdefault(m.group(1), {}), int(m.group(2))
+            cur = out.setdefault(m.group(1), {}), int(m.group(2) or 5)
             spill = 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -115,10 +124,11 @@ def ptxas_summary(build_log: str) -> dict:
     return out
 
 
-def cuda_ms(fn, reps=1):
+def cuda_ms(fn, reps=1, warm=True):
     """Mean milliseconds of fn() on the card (CUDA events, after one
-    warm-up call)."""
-    fn()
+    warm-up call unless warm is False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -272,6 +282,30 @@ def flank_pool(us, vs):
     return pool, np.cumsum(lu) - lu, lu, lu.sum() + np.cumsum(lv) - lv, lv
 
 
+def k2r_check(kout: dict, pout: dict) -> int:
+    """The resident kernel's largest difference from its plain version
+    over every output; outputs of other keys or shapes fail."""
+    if set(kout) != set(pout) or any(kout[k].shape != pout[k].shape
+                                     for k in pout):
+        raise SystemExit("K2r's outputs differ in keys or shapes")
+    return max(int((kout[k].long() - pout[k].long()).abs().max())
+               for k in pout)
+
+
+def k2r_bytes(gp, desc, kout) -> int:
+    """The bytes a resident launch must move: the pool planes, the lane
+    descriptors and the outputs, each once."""
+    return sum(a.numel() * a.element_size()
+               for a in (gp, *desc, *kout.values()))
+
+
+def k2r_summary(kout: dict, cnt: dict) -> str:
+    done, fb = np.bincount(kout["route"].cpu().numpy(), minlength=2)
+    return (f"lanes done {done}, fallback {fb}; chunks "
+            f"{int(kout['chunks'].long().sum())}, lane-chunks by (W, D) "
+            f"{dict(sorted(cnt['chunks'].items()))}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -298,6 +332,8 @@ def main() -> int:
     from genometools_torch.ops import greedy_batch as gb
     from genometools_torch.ops import greedy_chunk as gc
     from genometools_torch.ops import greedy_full as gf
+    from genometools_torch.ops import greedy_resident as gr
+    from genometools_torch.ops import pool as gpl
     from genometools_torch.ops import xdrop_batch as xb
     from genometools_torch.ops import xdrop_full as xf
 
@@ -319,6 +355,9 @@ def main() -> int:
         for name, per_ng in ptxas_summary(_kernels.build_log).items():
             log(f"ptxas {name} (registers, spill bytes) by slot groups: "
                 f"{dict(sorted(per_ng.items()))}")
+        for W in gb.GreedyBatchConfig.W_TIERS:
+            log(f"K2r occupancy with windows up to {W}: "
+                f"{gr.resident_occupancy(W)}")
 
     with Phase("2 kernels against plain versions"):
         rng = np.random.default_rng(7)
@@ -338,8 +377,8 @@ def main() -> int:
         for (W, D, GENS), n in shapes:
             us, vs = random_flanks(rng, n, W)
             pool, uo, ul, vo, vl = flank_pool(us, vs)
-            gp = gb.upload_pool(pool, dev)
-            PK = gb.pk_from_pool(gp, t(uo), t(ul), t(vo), t(vl),
+            gp = gpl.upload_pool(pool, dev)
+            PK = gpl.pk_from_pool(gp, t(uo), t(ul), t(vo), t(vl),
                                  t(np.zeros(len(us), bool)),
                                  t(rng.integers(10, 40, len(us))), W)
             cnt = {}
@@ -361,16 +400,16 @@ def main() -> int:
             n = 4096 if W <= 1536 else 256
             us, vs = long_flanks(rng, n, W // 2, 3 * W)
             pool, uo, ul, vo, vl = flank_pool(us, vs)
-            gp = gb.upload_pool(pool, dev)
+            gp = gpl.upload_pool(pool, dev)
             su, ulen, sv, vlen = t(uo), t(ul), t(vo), t(vl)
             rv = t(np.zeros(n, bool))
             for D in cfg.D_TIERS:
-                c0, state = gb.chunk_gen0(gp, su, ulen, sv, vlen, rv,
+                c0, state = gpl.chunk_gen0(gp, su, ulen, sv, vlen, rv,
                                           t(rng.integers(10, 40, n)),
                                           p80.history, D)
                 c0t = t(c0)
-                PW = gb.chunk_windows(gp, su, ulen, sv, vlen, rv, c0t, c0t,
-                                      W)
+                PW = gpl.chunk_windows(gp, su, ulen, sv, vlen, rv, c0t,
+                                       c0t, W)
                 z = lambda dt: torch.zeros(n, dtype=dt, device=dev)
                 args = (PW, *state, z(torch.int32), z(torch.bool),
                         z(torch.bool), torch.zeros((n, 4), dtype=torch.int32,
@@ -392,6 +431,59 @@ def main() -> int:
                     f"{err}, done {int(kout[6].sum())}, paused "
                     f"{int(kout[8].sum())}, generations "
                     f"{int(kout[9].long().sum())}")
+        k2r = kernels["K2r"] = Kernel("K2r")
+        # lanes of every kind the resident kernel meets: homologous
+        # flanks of 300-4,000 at 1-15 % errors, some reversed, some with
+        # long exact runs (window tiers 1,536 .. 24,576), some with a
+        # 24-symbol insertion, some unrelated
+        n = 512
+        us, vs = long_flanks(rng, n, 300, 4000)
+        for i in range(0, n, 16):
+            L = int(rng.integers(2000, 30000))
+            u = rng.integers(0, 4, L).astype(np.uint8)
+            v = u.copy()
+            v[rng.integers(0, L, 1 + i % 5)] ^= 1
+            us[i], vs[i] = u, v
+            j = i + 1
+            vs[j] = np.concatenate([us[j][:200], rng.integers(
+                0, 4, 24).astype(np.uint8), us[j][200:]])
+            us[i + 2] = rng.integers(0, 4, us[i + 2].size).astype(np.uint8)
+        pool, uo, ul, vo, vl = flank_pool(us, vs)
+        rv = rng.integers(0, 2, n).astype(bool)
+        T = pool.size
+        gp = gpl.upload_pool(pool, dev)
+        desc = (t(np.where(rv, T - uo - ul, uo)), t(ul),
+                t(np.where(rv, T - vo - vl, vo)), t(vl), t(rv),
+                t(rng.integers(10, 40, n)))
+        cfg = gb.GreedyBatchConfig()
+        # seed_extend's default trims (maxalignedlendifference 5) keep the
+        # live front within D = 16; weaker trims a user can set
+        # (maxalignedlendifference 30, percmathistory 55) widen it
+        pw = SeedExtendParams(extension="greedy", perc_mat_history=55,
+                              maxalignedlendifference=30)
+        weak = (gb._mmp128(55), 30, pw.polishing_info().match_score,
+                pw.polishing_info().difference_score, pw.history)
+        for W in cfg.W_TIERS:
+            tiers = tuple(w for w in cfg.W_TIERS if w <= W)
+            for scw in (sc, weak):
+                args = (*scw, tiers, cfg.D_TIERS, cfg.GENS, cfg.MAX_CHUNKS)
+                cnt = {}
+                ms, kout = cuda_ms(
+                    lambda: gr.greedy_resident(gp, *desc, *args))
+                pms, pout = cuda_ms(lambda: gr.greedy_resident_plain(
+                    gp, *desc, *args, counts=cnt), warm=False)
+                err = k2r_check(kout, pout)
+                b = k2r.add(ms, pms, err, k2r_bytes(gp, desc, kout),
+                            int(kout["slot_gens"]))
+                log(f"K2r tiers {tiers} N={n} trims (percmathistory, "
+                    f"maxalignedlendifference) {(scw[0], scw[1])}: kernel "
+                    f"{ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err "
+                    f"{err}; {k2r_summary(kout, cnt)}")
+                by = cnt["chunks"]
+                if W not in {w for w, _ in by} or scw is weak and \
+                        {d for _, d in by} != set(cfg.D_TIERS):
+                    raise SystemExit(f"K2r's check with tiers {tiers} ran "
+                                     f"lane-chunks {by} only")
         k3 = kernels["K3"] = Kernel("K3")
         for W in xb.TIERS:
             us, vs = random_flanks(rng, 4096, W, 0.02, 0.25)
@@ -563,19 +655,27 @@ def main() -> int:
                 "-minidentity", "80"]
         gf.launches = 0
         gc.launches = 0
+        gr.launches = 0
+        gr.work.update(slot_gens=0, bytes=0)
         gb.reset_stats()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             cli.main(argv)
         dt = time.perf_counter() - t0
-        launches["K2"] = gc.launches
+        launches["K2r"] = gr.launches
         lines = buf.getvalue().splitlines()
         log(f"seed_extend g4m -extendgreedy -l 500 -minidentity 80: "
             f"{len(lines)} matches in {dt:.3f}s [{smi}]; launches K1 "
-            f"{gf.launches}, K2 {gc.launches}; lanes K1 "
-            f"{gb.stats['kernel_lanes']}, K2 {gb.stats['chunk_lanes']}, "
+            f"{gf.launches}, K2r {gr.launches}, K2 {gc.launches}; lanes K1 {gb.stats['kernel_lanes']}, K2r "
+            f"{gb.stats['resident_lanes']}, K2 {gb.stats['chunk_lanes']}, "
             f"host {gb.stats['host_lanes']}")
+        b = gr.work["bytes"] / HBM_BYTES_PER_S * 1e3
+        o = gr.work["slot_gens"] * OPS_PER_SLOT_GEN["K2r"] / \
+            INT32_OPS_PER_S * 1e3
+        log(f"K2r on this run's work: {gr.work['slot_gens']} live "
+            f"slot-generations, {gr.work['bytes']} bytes; bound "
+            f"{max(b, o):.4f} ms (bytes {b:.4f}, operations {o:.4f})")
         g4m = Encseq.load("g4m")
         p = SeedExtendParams(extension="greedy", userdefinedleastlength=500,
                              minidentity=80)
@@ -586,12 +686,13 @@ def main() -> int:
             f"{time.perf_counter() - t0:.3f}s")
         if lines != ref or not lines:
             raise SystemExit("seed_extend g4m differs from the fused engine")
-        if gc.launches == 0:
-            raise SystemExit("the long-flank path launched K2 no time")
+        if gr.launches == 0 or gc.launches:
+            raise SystemExit("the long-flank path launched K2r no time, or "
+                             "K2")
         if opts.profile:
             profile_run(lambda: cli.main(argv))
 
-    with Phase("7b long flanks: K2 route against the host route"):
+    with Phase("7b long flanks: resident, chunk and host routes"):
         t0 = time.perf_counter()
         pool, u_off, u_len, v_off, v_len, rev, k = \
             collect_extension_pool(g4m, p)
@@ -610,18 +711,21 @@ def main() -> int:
         kw = dict(seedlengths=k, perc_mat_history=pmh,
                   maxalignedlendifference=mad, pol_info=p.polishing_info(),
                   history=p.history, device=dev,
-                  gp=gb.upload_pool(pool, dev))
+                  gp=gpl.upload_pool(pool, dev))
         gb.greedy_extend_batch_pool(pool, *(a[:1024] for a in sub),
                                     **kw)                     # warm-up
         gens = [gb.GreedyBatchConfig.GENS] + \
             [int(g) for g in opts.gens.split(",") if g]
         sums = {}
-        for route in ("K2", "host", "host", "K2"):
-            for g in gens if route == "K2" else [None]:
+        for route in ("resident", "chunk", "host", "host", "chunk",
+                      "resident"):
+            for g in [None] if route == "host" else gens:
                 cfg = gb.GreedyBatchConfig()
                 cfg.GENS = g or cfg.GENS
+                cfg.RESIDENT = route != "chunk"
                 gb.reset_stats()
                 gc.launches = 0
+                gr.launches = 0
                 t0 = time.perf_counter()
                 res = gb.greedy_extend_batch_pool(
                     pool, *sub, cfg=cfg, skip_chunked=route == "host", **kw)
@@ -629,19 +733,52 @@ def main() -> int:
                 dt = time.perf_counter() - t0
                 total = int(res["alignedlen"].astype(np.int64).sum())
                 sums.setdefault(route, set()).add(total)
+                if route == "chunk" and "K2" not in launches:
+                    launches["K2"] = gc.launches      # K2's path
                 log(f"long-flank batch, {route} route"
                     + (f" GENS={g}" if g else "") + f": {dt:.3f}s [{smi}]; "
                     f"alignedlen sum {total}; lanes K1 "
-                    f"{gb.stats['kernel_lanes']}, K2 "
+                    f"{gb.stats['kernel_lanes']}, K2r "
+                    f"{gb.stats['resident_lanes']}, K2 "
                     f"{gb.stats['chunk_lanes']}, host "
-                    f"{gb.stats['host_lanes']}; K2 launches {gc.launches}")
-        if len(sums["K2"] | sums["host"]) != 1:
-            raise SystemExit(f"long-flank alignedlen sums differ: {sums}")
+                    f"{gb.stats['host_lanes']}; launches K2r {gr.launches}, "
+                    f"K2 {gc.launches}")
+        if set().union(*sums.values()) != {LONG_ANCHOR}:
+            raise SystemExit(f"long-flank alignedlen sums differ from "
+                             f"{LONG_ANCHOR}: {sums}")
+        if launches["K2"] == 0:
+            raise SystemExit("the chunk route launched K2 no time")
+        # K2r against its plain version at the main path's lane count
+        cfg = gb.GreedyBatchConfig()
+        T = pool.size
+        uo, ul, vo, vl, rv = (torch.from_numpy(np.asarray(a)) for a in sub)
+        desc = tuple(a.to(dev) for a in (
+            torch.where(rv, T - uo - ul, uo), ul,
+            torch.where(rv, T - vo - vl, vo), vl, rv,
+            torch.full_like(uo, k)))
+        pol = p.polishing_info()
+        args = (gb._mmp128(pmh), mad, pol.match_score, pol.difference_score,
+                p.history, cfg.W_TIERS, cfg.D_TIERS, cfg.GENS,
+                cfg.MAX_CHUNKS)
+        cnt = {}
+        ms, kout = cuda_ms(lambda: gr.greedy_resident(kw["gp"], *desc,
+                                                      *args))
+        pms, pout = cuda_ms(lambda: gr.greedy_resident_plain(
+            kw["gp"], *desc, *args, counts=cnt), warm=False)
+        err = k2r_check(kout, pout)
+        b = kernels["K2r"].add(ms, pms, err, k2r_bytes(kw["gp"], desc, kout),
+                               int(kout["slot_gens"]))
+        log(f"K2r on the 65,536 tasks: kernel {ms:.3f} ms, plain "
+            f"{pms:.1f} ms, {b}, max_abs_err {err}; "
+            f"{k2r_summary(kout, cnt)} [{smi}]")
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),
            "K2": ("greedy_chunk", "genometools_torch/csrc/greedy_chunk.cu",
                   "genometools_tpu/ops/greedy_pallas.py:456"),
+           "K2r": ("greedy_resident",
+                   "genometools_torch/csrc/greedy_resident.cu",
+                   "genometools_tpu/ops/greedy_pallas.py:456"),
            "K3": ("xdrop_full", "genometools_torch/csrc/xdrop_full.cu",
                   "genometools_tpu/ops/xdrop_pallas.py:301")}
     log(json.dumps({"kernels": [
@@ -653,7 +790,7 @@ def main() -> int:
          "bound_by": kernels[kid].bound_by,
          # no single PyTorch call computes a greedy or xdrop front
          "library_ms": None}
-        for kid in ("K1", "K2", "K3")]}))
+        for kid in ("K1", "K2", "K2r", "K3")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -115,6 +115,15 @@ def lib():
     #                     difference_score, hist_cap, stream)
     L.gt_greedy_chunk.argtypes = [vp] * 15 + [ci] * 10 + [vp]
     L.gt_greedy_chunk.restype = ci
+    # int gt_greedy_resident(pool, stride, ustart, ulen, vstart, vlen, rev,
+    #                        seedlen, order, ctr, best, died, route, chunks,
+    #                        slot_gens, conf, N, stream)
+    L.gt_greedy_resident.argtypes = [vp, ctypes.c_longlong] + [vp] * 13 + \
+        [ctypes.POINTER(ci), ci, vp]
+    L.gt_greedy_resident.restype = ci
+    # int gt_greedy_resident_occupancy(wmax, out[3])
+    L.gt_greedy_resident_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
+    L.gt_greedy_resident_occupancy.restype = ci
     L.gt_cuda_error_string.argtypes = [ci]
     L.gt_cuda_error_string.restype = ctypes.c_char_p
     _lib = L

@@ -4,7 +4,9 @@
 // _make_kernel(single_shot=False) (pl.pallas_call at greedy_pallas.py:456,
 // launched by _chunk_pallas / greedy_chunk_pallas). It runs K1's
 // generation body (greedy_common.cuh) on the state that the windowed
-// loop carries from chunk to chunk (genometools_torch/ops/greedy_batch.py):
+// loop carries from chunk to chunk (genometools_torch/ops/chunk_loop.py;
+// since the resident kernel greedy_resident.cu, only on the RESIDENT =
+// False route):
 //   (a) the (N, K) slot state and the per-lane state are loaded from
 //       device memory, the window's six bit-planes into shared memory;
 //   (b) the input state is scored first (trim, polished point,

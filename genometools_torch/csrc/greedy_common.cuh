@@ -189,12 +189,14 @@ __device__ __forceinline__ void trim_and_score(
 
 // Up to a.gcap generations of a scored state. A generation whose front
 // touches the window end or the slot edge is not committed: the lane
-// stops there and the function returns true (paused).
-template <int NG>
+// stops there and the function returns true (paused). COUNT: *live gains
+// the live slots of every generation computed (the work the data needs).
+template <int NG, bool COUNT = false>
 __device__ __forceinline__ bool gt_generations(
     int (&row)[NG], uint64_t (&h)[NG], int (&hs)[NG], int (&mm)[NG],
     int (&val)[NG], int& d_lane, int (&best)[4], bool& done, bool& died,
-    const uint32_t* P, const GreedyArgs& a, int lane) {
+    const uint32_t* P, const GreedyArgs& a, int lane,
+    long long* live = nullptr) {
   for (int t = 0; !done && t < a.gcap; ++t) {
     int vin[NG], vde[NG], rin[NG], rde[NG], hsin[NG], hsde[NG], mmin[NG],
         mmde[NG];
@@ -237,6 +239,11 @@ __device__ __forceinline__ bool gt_generations(
       hs_n[g] = min(hsn + 1, a.hist_cap);
       h_n[g] = hn << 1;
       row_n[g] = anyc[g] ? r_new : GT_NEGINF;
+    }
+    if (COUNT) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        *live += __popc(__ballot_sync(GT_FULL, anyc[g]));
     }
     add_matches<NG>(row_n, h_n, hs_n, anyc, P, a, lane);
     bool contact_l = false;

@@ -39,7 +39,8 @@ from ..core.native import (greedy_batch_native, kmer_list_native,
                            xdrop_batch_native)
 from ..device import resolve_device
 from ..ops.greedy import PolishingInfo, greedy_extend, greedy_params_table
-from ..ops.greedy_batch import greedy_extend_batch_pool, upload_pool
+from ..ops.greedy_batch import greedy_extend_batch_pool
+from ..ops.pool import upload_pool
 from ..ops.kmer import kmer_codes_np, spaced_kmer_codes_np
 from ..ops.xdrop import XdropScores, optimal_xdrop_belowscore, xdrop_extend
 from ..ops.xdrop_batch import xdrop_extend_batch_pool

@@ -5,7 +5,7 @@ Replaces the Pallas kernel ``genometools_tpu/ops/greedy_pallas.py``
 ``greedy_chunk_pallas`` (``pl.pallas_call`` at greedy_pallas.py:456);
 its XLA twin is ``genometools_tpu/ops/greedy_batch.py``
 ``greedy_chunk_xla``. K2 runs K1's generation body on a state that the
-windowed chunk loop (``ops/greedy_batch.py``) carries across chunks: it
+windowed chunk loop (``ops/chunk_loop.py``) carries across chunks: it
 scores the input state (trim, polished point, completion — idempotent,
 so a raw generation-0 state is fine and no generation 0 runs here),
 runs up to GENS generations, and pauses a lane whose front touches the

@@ -17,7 +17,7 @@ import torch
 
 from ..core.native import xdrop_batch_native
 from ..device import resolve_device
-from .greedy_batch import pk_from_pool, pool_flanks, upload_pool
+from .pool import pk_from_pool, pool_flanks, upload_pool
 from .xdrop_full import xdrop_full
 
 D_BAND = 32          # K = 65 slots; lanes leaving the band re-run exactly

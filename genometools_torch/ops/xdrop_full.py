@@ -32,7 +32,7 @@ import torch
 
 from .. import _kernels
 from .bits import from_i32_bits
-from .greedy_batch import pack_codes
+from .pool import pack_codes
 from .greedy_full import gens_cap, match_run, match_words
 
 NEGINF = -(2 ** 30)

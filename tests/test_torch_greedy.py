@@ -15,6 +15,7 @@ import torch
 
 from genometools_torch.ops import greedy_batch as tgb
 from genometools_torch.ops.greedy_full import greedy_full
+from genometools_torch.ops.pool import pack_codes
 
 torch.set_num_threads(1)
 
@@ -53,7 +54,7 @@ def _pk(us, vs, seedl, W):
         V[i, :len(v)] = v
     W32 = W // 32
     PK = np.zeros((N, 6 * W32 + 3), np.uint32)
-    for ci, plane in enumerate(tgb.pack_codes(U) + tgb.pack_codes(V)):
+    for ci, plane in enumerate(pack_codes(U) + pack_codes(V)):
         PK[:, ci * W32:(ci + 1) * W32] = plane
     PK[:, 6 * W32] = seedl
     PK[:, 6 * W32 + 1] = [len(u) for u in us]

@@ -17,6 +17,7 @@ import torch
 
 from genometools_torch.ops import greedy_batch as tgb
 from genometools_torch.ops import greedy_chunk as tgc
+from genometools_torch.ops.pool import pack_codes
 
 torch.set_num_threads(1)
 
@@ -96,11 +97,13 @@ CASES = {
 
 
 class _NoK1(tgb.GreedyBatchConfig):
-    """Every lane through the chunk loop, as the reference batch runs
-    on the CPU (its single-shot path needs the Pallas kernel)."""
+    """Every lane through the host-driven chunk loop and K2, as the
+    reference batch runs on the CPU (its single-shot path needs the
+    Pallas kernel)."""
     FULL_PASSES = ()
     RESCUE = None
     GENS = GENS
+    RESIDENT = False
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +137,7 @@ def _port_args(a):
     """The port's K2 arguments from a recorded greedy_chunk_xla call:
     U/V code windows become the six bit-planes, hlo/hhi one int64."""
     U, V = np.asarray(a[0]), np.asarray(a[1])
-    planes = np.concatenate(list(tgb.pack_codes(U)) + list(tgb.pack_codes(V)),
+    planes = np.concatenate(list(pack_codes(U)) + list(pack_codes(V)),
                             axis=1).view(np.int32)
     h = (np.asarray(a[3]).astype(np.uint64)
          | (np.asarray(a[4]).astype(np.uint64) << np.uint64(32)))
@@ -248,13 +251,14 @@ def test_pool_chunk_loop_matches_reference(recorded):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_batch_matches_scalar_engine(recorded, case):
-    """The default batch (K1 passes, the chunk loop, the host engine
-    for fallback lanes) equals the scalar engine on every lane."""
+    """The default batch (K1 passes, the chunk loop in the resident
+    kernel's plain version, the host engine for fallback lanes) equals
+    the scalar engine on every lane."""
     from genometools_tpu.ops.greedy import PolishingInfo, greedy_extend
     us, vs, kw, ref, _ = recorded[case]
     tgb.reset_stats()
     got = tgb.greedy_extend_batch(us, vs, device="cpu", **kw)
-    assert tgb.stats["chunk_lanes"] > 0
+    assert tgb.stats["resident_lanes"] > 0
     assert tgb.stats["host_lanes"] == int(got["fallback"].sum())
     pol = PolishingInfo.new(float(kw["errorpercentage"]), HIST)
     for i, (u, v) in enumerate(zip(us, vs)):
@@ -279,7 +283,8 @@ def test_skip_chunked_routes_to_host():
     tgb.reset_stats()
     b = tgb.greedy_extend_batch(us[:4], vs[:4], device="cpu",
                                 skip_chunked=True, **kw)
-    assert tgb.stats["chunk_lanes"] == 0 and b["fallback"].all()
+    assert tgb.stats["chunk_lanes"] == tgb.stats["resident_lanes"] == 0
+    assert b["fallback"].all()
     for k in ("alignedlen", "row", "distance", "mismatches", "died"):
         assert np.array_equal(a[k], b[k]), k
 

@@ -151,7 +151,8 @@ def test_unported_options_raise():
 def test_planted_repeats_take_the_chunk_route(monkeypatch, tmp_path):
     """A small g4m_planted_repeats-style genome (2 x 50 kbp, six repeats
     of 3-8 kbp): the greedy flanks are longer than K1's windows, so the
-    wave path runs the windowed chunk loop (K2's plain version here),
+    wave path runs the windowed chunk loop (the resident kernel's plain
+    version here),
     and the lines equal the fused engine's and the reference's."""
     from genometools_tpu.core.encseq import Encseq as RefEncseq
     from genometools_tpu.match import seed_extend as rse
@@ -175,4 +176,4 @@ def test_planted_repeats_take_the_chunk_route(monkeypatch, tmp_path):
     got = [m.line() for m in tse.seed_extend(
         enc, None, tse.params_from_reference(p), device="cpu", wave=32)]
     assert got == fused == ref and ref
-    assert tgb.stats["chunk_lanes"] > 0
+    assert tgb.stats["resident_lanes"] > 0
