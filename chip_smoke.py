@@ -4,24 +4,35 @@
 
 Run from the root of a checkout. Phases, each printed with its seconds:
 
-  1. setup: build the CUDA kernels from genometools_torch/csrc; the
-     resident kernel's occupancy at each window tier;
+  1. setup: build the CUDA kernels from genometools_torch/csrc; nvcc's
+     ptxas report of the build in use (registers, spills, stack frames;
+     K3 must have no frame: its score ring lives in registers); the
+     persistent kernels' occupancy (K2r at each window tier, K1 at its
+     slot tiers, K3 at its window tiers);
   2. K1 (greedy), K2 (greedy chunk), K2r (the resident K2) and K3
      (xdrop) against their plain PyTorch versions on the card, at every
-     shape the main paths launch; K2r with window tiers up to each tier
-     (the shared memory it holds), under the default and weak trims, so
-     that each run covers its widest tier and the weak runs both slot
-     tiers (exact: tolerance 0, the outputs are integers);
+     shape the main paths launch (K1's D = 128 rescue on the lanes its
+     slot ladder leaves undone, or on 4,096 lanes of each set when it
+     leaves none); K1 and K3 also on 131,072 lanes of
+     at1MB's own extension workload (some 80 lanes for each persistent
+     warp), K3 also on long and off-band lanes (it must take some of
+     the lanes the reference routes to the host); K2r with window tiers
+     up to each tier (the shared memory it holds), under the default and
+     weak trims, so that each run covers its widest tier and the weak
+     runs both slot tiers (exact: tolerance 0, the outputs are integers,
+     the kernels' slot-generation counters included);
   3. `python -m genometools_torch suffixerator -suf -lcp -tis` on the
      at1MB test genome: .suf/.lcp/.llv must equal gt's goldens;
   4. the suffix array of a 32 Mbp synthetic genome on the card against
      the host SA-IS and Kasai engines;
   5. the at1MB extension workload through the greedy and xdrop batches:
      the exactness anchors (alignedlen sum 157,827,064 over 530,140
-     tasks; score sum 17,549,780 over 65,536 tasks at belowscore 7);
+     tasks; score sum 17,549,780 over 65,536 tasks at belowscore 7),
+     and the workload's flank-length histogram;
   6. the seed_extend CLI (greedy, then xdrop) on the phase-3 index
      against the reference's fused host engine, with the kernels'
-     launch counts read around this run (the main path of K1 and K3);
+     launch counts, lanes by route and tier, and the work of their
+     launches read around this run (the main path of K1 and K3);
   7. long flanks on g4m_planted_repeats (two 2 Mbp sequences with 150
      planted repeats, numpy seed 2026): (a) the suffixerator and
      seed_extend -extendgreedy CLI against the fused host engine, with
@@ -38,8 +49,9 @@ Run from the root of a checkout. Phases, each printed with its seconds:
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
 the H100's INT32 rate (132 SMs x 64 lanes x 1.98 GHz); the
-operations are the live slot-generations the plain version counts on
-the same inputs, times OPS_PER_SLOT_GEN.
+operations are the live slot-generations of the same inputs (the
+kernel's own counter for K1, K2r and K3; the plain version's count for
+K2), times OPS_PER_SLOT_GEN.
 
 Any mismatch or error exits non-zero before the last line. The last
 line is the device JSON; the line before it lists the kernels. Without
@@ -103,23 +115,28 @@ class Phase:
 
 
 def ptxas_summary(build_log: str) -> dict:
-    """{kernel: {NG: (registers, spill store bytes)}} from nvcc's
-    -Xptxas -v report."""
+    """{kernel: {slot groups: (registers, spill store bytes, stack frame
+    bytes)}} from nvcc's -Xptxas -v report (K1's two-tier kernel as
+    "NG0,NG1")."""
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"entry function '\S*?(greedy_full_kernel|"
                       r"greedy_chunk_kernel|xdrop_full_kernel|"
-                      r"greedy_resident_kernel)(?:ILi(\d+)E)?", line)
+                      r"greedy_resident_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                      line)
         if m:
-            cur = out.setdefault(m.group(1), {}), int(m.group(2) or 5)
-            spill = 0
+            ng = m.group(2) or "5"
+            cur = out.setdefault(m.group(1), {}), \
+                ng + (f",{m.group(3)}" if m.group(3) else "")
+            spill = frame = 0
             continue
-        m = re.search(r"(\d+) bytes spill stores", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
         if m:
-            spill = int(m.group(1))
+            frame, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
-            cur[0][cur[1]] = (int(m.group(1)), spill)
+            cur[0][cur[1]] = (int(m.group(1)), spill, frame)
             cur = None
     return out
 
@@ -167,6 +184,67 @@ class Kernel:
     @property
     def bound_by(self):
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+
+def k1_check(k1: Kernel, sc, what, gp, desc) -> int:
+    """K1 as the batch launches it (the slot ladder, then the rescue on
+    the lanes left undone) against its plain version, with the bound
+    from the kernel's slot-generation counter. When the ladder leaves no
+    lane undone, the rescue runs on the first 4,096 lanes, so that every
+    call holds both configurations. Returns the rescue's lane count."""
+    from genometools_torch.ops import greedy_batch as gb
+    from genometools_torch.ops import greedy_full as gf
+    cfg = gb.GreedyBatchConfig()
+    lanes = desc
+    for d_tiers, GENS in ((cfg.FULL_D, cfg.FULL_GENS),
+                          (cfg.RESCUE[:1], cfg.RESCUE[1])):
+        n = lanes[0].numel()
+        if n == 0:
+            lanes = tuple(a[:4096] for a in desc)
+            n = lanes[0].numel()
+        args = (*sc, cfg.FULL_W, d_tiers, GENS)
+        cnt = {}
+        ms, (kout, sg) = cuda_ms(lambda: gf.greedy_full(gp, *lanes, *args))
+        pms, pout = cuda_ms(lambda: gf.greedy_full_plain(
+            gp, *lanes, *args, counts=cnt), warm=False)
+        err = max(int((kout.long() - pout.long()).abs().max()),
+                  abs(int(sg) - cnt["slot_gens"]))
+        b = k1.add(ms, pms, err, lane_bytes(gp, lanes, kout), int(sg))
+        log(f"K1 {what} slot tiers {d_tiers} GENS={GENS} N={n}: kernel "
+            f"{ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err {err}, "
+            f"done {int(kout[4].sum())}, undone {int(kout[6].sum())}")
+        undone = kout[6] != 0
+        lanes = tuple(a[undone] for a in lanes)
+    return n
+
+
+def k3_check(k3: Kernel, what, gp, desc) -> int:
+    """K3 at the batch's tiers against its plain version, with the bound
+    from the kernel's slot-generation counter; returns how many lanes it
+    took that the reference routes to the host."""
+    from genometools_torch.ops import xdrop_batch as xb
+    from genometools_torch.ops import xdrop_full as xf
+    desc = desc[:5]
+    cnt = {}
+    args = (7, xb.TIERS, xb.D_BAND)
+    ms, (kout, sg) = cuda_ms(lambda: xf.xdrop_full(gp, *desc, *args))
+    pms, pout = cuda_ms(lambda: xf.xdrop_full_plain(
+        gp, *desc, *args, counts=cnt), warm=False)
+    err = max(int((kout.long() - pout.long()).abs().max()),
+              abs(int(sg) - cnt["slot_gens"]))
+    b = k3.add(ms, pms, err, lane_bytes(gp, desc, kout), int(sg))
+    taken = kout[3] == 0
+    long = int((taken & (torch.maximum(desc[1], desc[3]) > xb.REF_MAXLEN))
+               .sum())
+    off = int((taken & ((desc[1] - desc[3]).abs() > xb.REF_BAND)).sum())
+    tiers = torch.bincount(kout[4][taken].long(),
+                           minlength=len(xb.TIERS)).tolist()
+    log(f"K3 {what} tiers {xb.TIERS} D={xb.D_BAND} N={desc[0].numel()}: "
+        f"kernel {ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err {err}; "
+        f"taken by tier {tiers} (longer than {xb.REF_MAXLEN}: {long}, "
+        f"|ulen - vlen| > {xb.REF_BAND}: {off}), unsafe "
+        f"{int((~taken).sum())}")
+    return long + off
 
 
 def profile_run(fn) -> None:
@@ -292,11 +370,46 @@ def k2r_check(kout: dict, pout: dict) -> int:
                for k in pout)
 
 
-def k2r_bytes(gp, desc, kout) -> int:
-    """The bytes a resident launch must move: the pool planes, the lane
+def pool_lanes(us, vs, seedl, dev):
+    """The uploaded pool and the lane tensors (ustart, ulen, vstart,
+    vlen, rev, seedlen) of flank pairs read forward."""
+    from genometools_torch.ops.pool import upload_pool
+    pool, uo, ul, vo, vl = flank_pool(us, vs)
+    n = len(us)
+    return upload_pool(pool, dev), tuple(
+        torch.from_numpy(np.asarray(a)).to(dev) for a in (
+            uo, ul, vo, vl, np.zeros(n, bool),
+            np.zeros(n, np.int64) + seedl))
+
+
+def workload_lanes(wl, idx, dev):
+    """The lane tensors of the tasks idx of an extension workload
+    (collect_extension_pool's result; left flanks read from the reversed
+    planes)."""
+    pool, uo, ul, vo, vl, rev, k = wl
+    T = pool.size
+    uo, ul, vo, vl, rev = (a[idx] for a in (uo, ul, vo, vl, rev))
+    return tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in (
+        np.where(rev, T - uo - ul, uo), ul, np.where(rev, T - vo - vl, vo),
+        vl, rev, np.full(idx.size, k, np.int64)))
+
+
+def lane_bytes(gp, desc, out) -> int:
+    """The bytes a persistent launch must move: the pool planes, the lane
     descriptors and the outputs, each once."""
-    return sum(a.numel() * a.element_size()
-               for a in (gp, *desc, *kout.values()))
+    outs = out.values() if isinstance(out, dict) else [out]
+    return sum(a.numel() * a.element_size() for a in (gp, *desc, *outs))
+
+
+def xdrop_lanes(xb) -> str:
+    st = xb.stats
+    tiers = dict(zip((W for W, _ in xb.TIERS), st["tier_lanes"]))
+    return (f"K3 {st['kernel_lanes']}, by window tier {tiers} "
+            f"(longer than {xb.REF_MAXLEN}: {st['long_lanes']}, |ulen - vlen|"
+            f" > {xb.REF_BAND}: {st['offband_lanes']}), host "
+            f"{st['host_lanes']}; "
+            f"lanes the reference's filters route to the host: "
+            f"{st['filtered_lanes']}")
 
 
 def k2r_summary(kout: dict, cnt: dict) -> str:
@@ -352,15 +465,36 @@ def main() -> int:
         _kernels.lib()
         log(f"kernels built in {_kernels.build_seconds:.2f}s (load "
             f"{time.perf_counter() - t0:.2f}s)")
-        for name, per_ng in ptxas_summary(_kernels.build_log).items():
-            log(f"ptxas {name} (registers, spill bytes) by slot groups: "
+        ptxas = ptxas_summary(_kernels.build_log)
+        for name, per_ng in ptxas.items():
+            log(f"ptxas {name} (registers, spill bytes, stack frame bytes) "
+                f"by slot groups: "
                 f"{dict(sorted(per_ng.items()))}")
-        for W in gb.GreedyBatchConfig.W_TIERS:
+        # K3's dback ring lives in registers: no instance keeps a frame
+        frames = {ng: r[2] for ng, r in ptxas.get(
+            "xdrop_full_kernel", {}).items() if r[2]}
+        if "xdrop_full_kernel" not in ptxas or frames:
+            raise SystemExit(f"no ptxas report of K3, or K3 keeps a stack "
+                             f"frame: {frames}")
+        cfg = gb.GreedyBatchConfig()
+        for W in cfg.W_TIERS:
             log(f"K2r occupancy with windows up to {W}: "
                 f"{gr.resident_occupancy(W)}")
+        for d_tiers in (cfg.FULL_D, cfg.RESCUE[:1]):
+            log(f"K1 occupancy, windows up to {cfg.FULL_W}, slot tiers "
+                f"{d_tiers}: {gf.occupancy(cfg.FULL_W, d_tiers)}")
+        log(f"K3 occupancy, window tiers {xb.TIERS}: "
+            f"{xf.occupancy(xb.TIERS, xb.D_BAND)}")
 
+    at1 = Encseq.load(str(AT1MB))
     with Phase("2 kernels against plain versions"):
         rng = np.random.default_rng(7)
+        t0 = time.perf_counter()
+        wl = collect_extension_pool(at1, SeedExtendParams(
+            extension="greedy"))
+        sample = np.linspace(0, wl[1].size - 1, 131072).astype(np.int64)
+        log(f"at1MB extension workload: {wl[1].size} tasks, "
+            f"{time.perf_counter() - t0:.1f}s to collect; 131,072 sampled")
         # the scores and trims of the default greedy run (minidentity 80)
         p80 = SeedExtendParams(extension="greedy")
         pmh, mad = p80.greedy_params()
@@ -369,28 +503,21 @@ def main() -> int:
               p80.history)
         t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
         k1 = kernels["K1"] = Kernel("K1")
-        # every pass shape at 4,096 lanes, then the first pass at a
-        # main-path wave size (131,072 lanes)
-        shapes = [(s, 4096) for s in gb.GreedyBatchConfig.FULL_PASSES] + \
-            [(gb.GreedyBatchConfig.RESCUE, 4096),
-             (gb.GreedyBatchConfig.FULL_PASSES[0], 131072)]
-        for (W, D, GENS), n in shapes:
-            us, vs = random_flanks(rng, n, W)
-            pool, uo, ul, vo, vl = flank_pool(us, vs)
-            gp = gpl.upload_pool(pool, dev)
-            PK = gpl.pk_from_pool(gp, t(uo), t(ul), t(vo), t(vl),
-                                 t(np.zeros(len(us), bool)),
-                                 t(rng.integers(10, 40, len(us))), W)
-            cnt = {}
-            ms, kout = cuda_ms(lambda: gf.greedy_full(PK, *sc, W, D, GENS))
-            pms, pout = cuda_ms(lambda: gf.greedy_full_plain(
-                PK, *sc, W, D, GENS, counts=cnt))
-            err = int((kout.long() - pout.long()).abs().max())
-            b = k1.add(ms, pms, err, PK.numel() * 4 + kout.numel() * 4,
-                       cnt["slot_gens"] // 2)
-            log(f"K1 W={W} D={D} GENS={GENS} N={len(us)}: kernel "
-                f"{ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err {err}, "
-                f"done {int(kout[4].sum())}, undone {int(kout[6].sum())}")
+        cfg = gb.GreedyBatchConfig()
+
+        rescued = 0
+        for W in (256, 768, cfg.FULL_W):
+            us, vs = random_flanks(rng, 4096, W)
+            rescued += k1_check(k1, sc, f"random flanks up to {W}",
+                                *pool_lanes(us, vs, rng.integers(
+                                    10, 40, len(us)), dev))
+        # the main path's own lanes: 131,072 of at1MB's extension tasks
+        gpw = gpl.upload_pool(wl[0], dev)
+        rescued += k1_check(k1, sc, "at1MB workload", gpw,
+                            workload_lanes(wl, sample, dev))
+        if rescued == 0:
+            raise SystemExit("K1's rescue configuration was compared on "
+                             "no lane")
         k2 = kernels["K2"] = Kernel("K2")
         cfg = gb.GreedyBatchConfig()
         for W in cfg.W_TIERS:
@@ -473,7 +600,7 @@ def main() -> int:
                 pms, pout = cuda_ms(lambda: gr.greedy_resident_plain(
                     gp, *desc, *args, counts=cnt), warm=False)
                 err = k2r_check(kout, pout)
-                b = k2r.add(ms, pms, err, k2r_bytes(gp, desc, kout),
+                b = k2r.add(ms, pms, err, lane_bytes(gp, desc, kout),
                             int(kout["slot_gens"]))
                 log(f"K2r tiers {tiers} N={n} trims (percmathistory, "
                     f"maxalignedlendifference) {(scw[0], scw[1])}: kernel "
@@ -485,21 +612,21 @@ def main() -> int:
                     raise SystemExit(f"K2r's check with tiers {tiers} ran "
                                      f"lane-chunks {by} only")
         k3 = kernels["K3"] = Kernel("K3")
-        for W in xb.TIERS:
-            us, vs = random_flanks(rng, 4096, W, 0.02, 0.25)
-            PK = torch.from_numpy(
-                xf.pack_xdrop_tasks(us, vs, W).view(np.int32)).to(dev)
-            cnt = {}
-            ms, kout = cuda_ms(lambda: xf.xdrop_full(PK, 7, W, xb.D_BAND,
-                                                     xb.GENS))
-            pms, pout = cuda_ms(lambda: xf.xdrop_full_plain(
-                PK, 7, W, xb.D_BAND, xb.GENS, counts=cnt))
-            err = int((kout.long() - pout.long()).abs().max())
-            b = k3.add(ms, pms, err, PK.numel() * 4 + kout.numel() * 4,
-                       cnt["slot_gens"] // 2)
-            log(f"K3 W={W} D={xb.D_BAND} GENS={xb.GENS} N={len(us)}: "
-                f"kernel {ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err "
-                f"{err}, unsafe {int(kout[3].sum())}")
+
+        us, vs = random_flanks(rng, 4096, 512, 0.02, 0.25)
+        k3_check(k3, "random flanks up to 512", *pool_lanes(us, vs, 0, dev))
+        # flanks beyond the first tier, and end diagonals beyond the band
+        us, vs = long_flanks(rng, 2048, 600, 3000)
+        for i in range(0, len(us), 2):
+            vs[i] = np.concatenate([vs[i][:int(rng.integers(50, 400))],
+                                    np.full(int(rng.integers(40, 300)), 254,
+                                            np.uint8)])
+        k3_check(k3, "long and off-band flanks",
+                 *pool_lanes(us, vs, 0, dev))
+        if k3_check(k3, "at1MB workload", gpw,
+                    workload_lanes(wl, sample, dev)) == 0:
+            raise SystemExit("K3 took none of the at1MB lanes the "
+                             "reference routes to the host")
         for k in kernels.values():
             log(f"{k.kid} over its shapes: kernel {k.ms:.3f} ms, plain "
                 f"{k.plain_ms:.1f} ms, bound {k.bound_ms:.4f} ms (bytes "
@@ -508,7 +635,6 @@ def main() -> int:
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     atexit.register(shutil.rmtree, work, True)
-    at1 = Encseq.load(str(AT1MB))
     with Phase("3 suffixerator CLI on at1MB"):
         write_fasta(at1, work / "at1MB.fna")
         env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -560,11 +686,15 @@ def main() -> int:
 
     with Phase("5 extension anchors on at1MB"):
         params = SeedExtendParams(extension="greedy")
-        t0 = time.perf_counter()
-        pool, u_off, u_len, v_off, v_len, rev, k = \
-            collect_extension_pool(at1, params)
-        log(f"workload: {u_off.size} tasks, k={k}, "
-            f"{time.perf_counter() - t0:.1f}s to collect")
+        pool, u_off, u_len, v_off, v_len, rev, k = wl
+        L = np.maximum(u_len, v_len)
+        edges = (0, 256, 512, 1024, 2048, 8192, 1 << 62)
+        hist = {f"{a + 1}-{b}": int(((L > a) & (L <= b)).sum())
+                for a, b in zip(edges, edges[1:])}
+        dif = np.abs(u_len - v_len) > xb.REF_BAND
+        log(f"workload: {u_off.size} tasks, k={k}; longer flank by length "
+            f"{hist}; |ulen - vlen| > {xb.REF_BAND}: {int(dif.sum())}; "
+            f"both: {int(((L > xb.REF_MAXLEN) & dif).sum())}")
         pmh, mad = params.greedy_params()
         pol = params.polishing_info()
         kw = dict(seedlengths=k, perc_mat_history=pmh,
@@ -598,9 +728,7 @@ def main() -> int:
         dt = time.perf_counter() - t0
         total = int(sv.sum())
         log(f"xdrop: {m} tasks in {dt:.3f}s = {m / dt:.0f} ext/s "
-            f"[{smi}]; score sum {total}; K3 lanes "
-            f"{xb.stats['kernel_lanes']}, host lanes "
-            f"{xb.stats['host_lanes']}")
+            f"[{smi}]; score sum {total}; {xdrop_lanes(xb)}")
         if (m, total) != XDROP_ANCHOR:
             raise SystemExit(f"xdrop anchor mismatch: want {XDROP_ANCHOR}")
         if xb.stats["kernel_lanes"] == 0:
@@ -608,8 +736,9 @@ def main() -> int:
 
     with Phase("6 seed_extend CLI on at1MB (main path)"):
         os.chdir(work)
-        gf.launches = 0
-        xf.launches = 0
+        for mod in (gf, xf, gr):
+            mod.launches = 0
+            mod.work.update(slot_gens=0, bytes=0)
         gb.reset_stats()
         xb.reset_stats()
         for flag, ext in (("-extendgreedy", "greedy"),
@@ -633,11 +762,22 @@ def main() -> int:
             if lines != ref or not lines:
                 raise SystemExit(f"seed_extend {flag} differs from the "
                                  "fused engine")
-        log(f"launches: K1 {gf.launches}, K3 {xf.launches}; lanes: K1 "
-            f"{gb.stats['kernel_lanes']} (host {gb.stats['host_lanes']}), "
-            f"K3 {xb.stats['kernel_lanes']} (host {xb.stats['host_lanes']})")
+        log(f"launches: K1 {gf.launches}, K2r {gr.launches}, K3 "
+            f"{xf.launches}; greedy lanes: K1 {gb.stats['kernel_lanes']}, "
+            f"K2r {gb.stats['resident_lanes']}, host "
+            f"{gb.stats['host_lanes']}; xdrop lanes: {xdrop_lanes(xb)}")
+        for kid, mod in (("K1", gf), ("K3", xf)):
+            b = mod.work["bytes"] / HBM_BYTES_PER_S * 1e3
+            o = mod.work["slot_gens"] * OPS_PER_SLOT_GEN[kid] / \
+                INT32_OPS_PER_S * 1e3
+            log(f"{kid} on this run's work: {mod.work['slot_gens']} "
+                f"slot-generations, {mod.work['bytes']} bytes; bound "
+                f"{max(b, o):.4f} ms (bytes {b:.4f}, operations {o:.4f})")
         if gf.launches == 0 or xf.launches == 0:
             raise SystemExit("the main path launched a kernel no time")
+        if xb.stats["long_lanes"] == 0 or xb.stats["offband_lanes"] == 0:
+            raise SystemExit("K3 took no lane longer than 512 or beyond "
+                             "the band on the main path")
         launches = {"K1": gf.launches, "K3": xf.launches}
 
     with Phase("7a long flanks: seed_extend CLI on g4m_planted_repeats"):
@@ -766,7 +906,7 @@ def main() -> int:
         pms, pout = cuda_ms(lambda: gr.greedy_resident_plain(
             kw["gp"], *desc, *args, counts=cnt), warm=False)
         err = k2r_check(kout, pout)
-        b = kernels["K2r"].add(ms, pms, err, k2r_bytes(kw["gp"], desc, kout),
+        b = kernels["K2r"].add(ms, pms, err, lane_bytes(kw["gp"], desc, kout),
                                int(kout["slot_gens"]))
         log(f"K2r on the 65,536 tasks: kernel {ms:.3f} ms, plain "
             f"{pms:.1f} ms, {b}, max_abs_err {err}; "

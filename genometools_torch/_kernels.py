@@ -5,7 +5,8 @@ together, and the objects link into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded
 with ctypes. The build runs at first use, into ``_build/`` next
 to this file (listed in .gitignore), keyed by a hash of the sources and
-flags. A failed build or load raises: there is no fallback.
+flags, with nvcc's report beside it. A failed build or load raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _lib = None
 build_seconds = 0.0      # wall time of the last build (0 = cached)
-build_log = ""           # nvcc's output of that build (-Xptxas -v report)
+# nvcc's output of the build in use (-Xptxas -v report), kept beside the
+# library and read back when the library is cached
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -52,7 +55,9 @@ def _build() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = _BUILD / f"libgtkernels-{h.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        build_log = log.read_text() if log.exists() else ""
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -89,6 +94,7 @@ def _build() -> Path:
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
                                f"{build_log}")
+        log.write_text(build_log)
         os.replace(tmp, out)
     return out
 
@@ -101,14 +107,18 @@ def lib():
     so = _build()
     L = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # int gt_greedy_full(PK, out, N, W, D, GENS, cut_depth, mmp128, mad,
-    #                    match_score, difference_score, hist_cap, stream)
-    L.gt_greedy_full.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                                 ci, ci, vp]
-    L.gt_greedy_full.restype = ci
-    # int gt_xdrop_full(PK, out, N, W, D, GENS, belowscore, stream)
-    L.gt_xdrop_full.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
-    L.gt_xdrop_full.restype = ci
+    cip = ctypes.POINTER(ci)
+    # int gt_greedy_full(pool, stride, desc[6], order, ctr, out, slot_gens,
+    #                    conf, N, stream); gt_xdrop_full the same with
+    #                    desc[5]
+    for fn in (L.gt_greedy_full, L.gt_xdrop_full):
+        fn.argtypes = [vp, ctypes.c_longlong, ctypes.POINTER(vp), vp, vp,
+                       vp, vp, cip, ci, vp]
+        fn.restype = ci
+    # int gt_greedy_full_occupancy(conf, out[3]), gt_xdrop_full_occupancy
+    for fn in (L.gt_greedy_full_occupancy, L.gt_xdrop_full_occupancy):
+        fn.argtypes = [cip, cip]
+        fn.restype = ci
     # int gt_greedy_chunk(P, row, h, hsize, mm, valid, d_lane, done, died,
     #                     paused, best, urem, vrem, kbase, rowbase, N, W,
     #                     D, GENS, cut_depth, mmp128, mad, match_score,
@@ -119,10 +129,10 @@ def lib():
     #                        seedlen, order, ctr, best, died, route, chunks,
     #                        slot_gens, conf, N, stream)
     L.gt_greedy_resident.argtypes = [vp, ctypes.c_longlong] + [vp] * 13 + \
-        [ctypes.POINTER(ci), ci, vp]
+        [cip, ci, vp]
     L.gt_greedy_resident.restype = ci
     # int gt_greedy_resident_occupancy(wmax, out[3])
-    L.gt_greedy_resident_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
+    L.gt_greedy_resident_occupancy.argtypes = [ci, cip]
     L.gt_greedy_resident_occupancy.restype = ci
     L.gt_cuda_error_string.argtypes = [ci]
     L.gt_cuda_error_string.restype = ctypes.c_char_p

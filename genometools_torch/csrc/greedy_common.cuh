@@ -1,5 +1,6 @@
-// The greedy front-prune recurrence shared by K1 (greedy_full.cu) and K2
-// (greedy_chunk.cu): one warp per task, slot s = 32*g + lane for g < NG.
+// The greedy front-prune recurrence shared by K1 (greedy_full.cu), K2
+// (greedy_chunk.cu) and K2r (greedy_resident.cu): one warp per task, slot
+// s = 32*g + lane for g < NG.
 //
 // Per generation: the ins > mis > del predecessor pick, the 64-bit
 // history shift, the match run, the percmathistory /
@@ -146,7 +147,8 @@ __device__ __forceinline__ void trim_and_score(
     int s = 32 * g + lane;
     val[g] = val[g] && anyk && s >= first && s <= last;
     cand[g] = GT_NEGINF;
-    if (val[g] && !done) {
+    // a slot at or below best[0] cannot move it: no polishing walk
+    if (val[g] && !done && al[g] > best[0]) {
       int fill = max(pol_size - hs[g], 0);
       uint64_t shf = hs[g] >= 64 ? 0ull : (gt_ones64(fill) << hs[g]);
       uint32_t filled = (uint32_t)h[g] | (uint32_t)shf;
@@ -185,6 +187,30 @@ __device__ __forceinline__ void trim_and_score(
   bool ok_k = abs(e_rel + a.kbase) <= d && inband && v_e &&
               r_e == (inband ? a.urem : GT_NEGINF);
   complete_now = ok_k && !done;
+}
+
+// out[g] (slot 32g + lane of NO groups) = a[slot + delta] (NI groups),
+// for any delta; values of source slots outside [0, 32*NI) are undefined
+// (the caller masks them).
+template <int NI, int NO, typename T>
+__device__ __forceinline__ void gt_slot_shift(const T (&a)[NI], T (&out)[NO],
+                                              int delta, int lane) {
+  const int dr = delta & 31;
+  const int dq = delta >> 5;                 // floor division
+  const int src = (lane + dr) & 31;
+  const int carry = (lane + dr) >> 5;
+  T x[NI];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) x[j] = __shfl_sync(GT_FULL, a[j], src);
+#pragma unroll
+  for (int g = 0; g < NO; ++g) {
+    const int js = g + dq + carry;
+    T v = x[0];
+#pragma unroll
+    for (int j = 1; j < NI; ++j)
+      if (js == j) v = x[j];
+    out[g] = v;
+  }
 }
 
 // Up to a.gcap generations of a scored state. A generation whose front
@@ -274,7 +300,7 @@ __device__ __forceinline__ bool gt_generations(
   return false;
 }
 
-// Launch KERNEL<NG> (NG = ceil(K/32)) over N tasks, 4 warps a block, with
+// K2's launch: KERNEL<NG> (NG = ceil(K/32)) over N tasks, 4 warps a block, with
 // the tasks' window planes as dynamic shared memory (opted in above
 // 48 KB). ARGS is the kernel's argument list.
 #define GT_GREEDY_LAUNCH(KERNEL, NGV, N, W, ST, ...)                      \

@@ -27,7 +27,8 @@
 //       its live slot-generations to one counter (for the bound). A lane
 //       that the tier rules give up on, or that runs max_chunks chunks,
 //       falls back (to the host engine), as in the chunk loop.
-// The plain PyTorch version is
+// The queue, the pool reader and generation 0's match run are pool.cuh's,
+// shared with K1 and K3. The plain PyTorch version is
 // genometools_torch/ops/greedy_resident.py::greedy_resident_plain.
 //
 // What bounds it on the H100: the serial generation chain of each lane,
@@ -42,6 +43,7 @@
 #include <climits>
 
 #include "greedy_common.cuh"
+#include "pool.cuh"
 
 namespace {
 
@@ -53,95 +55,6 @@ struct ResConf {
   int nwt, wt[4], ndt, dt[4], gcap, max_chunks, cut_depth, mmp128, mad, ms,
       ds, hist_cap;
 };
-
-// Word w (32 symbols from start + 32w) of one plane of a flank of `len`
-// symbols read from `start` (plane-set coordinates); symbols at or past
-// len are special with zero code bits. As pk_from_pool.
-__device__ __forceinline__ uint32_t pool_word(const int64_t* plane,
-                                              long long qmax,
-                                              long long start,
-                                              long long len, int w,
-                                              bool special) {
-  const long long q = min((start >> 5) + w, qmax);
-  const uint32_t x = __funnelshift_r((uint32_t)plane[q],
-                                     (uint32_t)plane[q + 1],
-                                     (int)(start & 31));
-  const long long nb = len - 32LL * w;
-  const uint32_t live =
-      nb >= 32 ? 0xffffffffu : nb <= 0 ? 0u : ((1u << nb) - 1u);
-  return special ? (x | ~live) : (x & live);
-}
-
-struct Lane {
-  long long su, ulen, sv, vlen;
-  const int64_t* planes;        // the plane set: pool rows 0-2 or 3-5
-};
-
-// The six window planes u[du:du+W], v[dv:dv+W] into shared memory.
-__device__ __forceinline__ void load_window(uint32_t* P, const Lane& L,
-                                            long long stride, long long du,
-                                            long long dv, int W32,
-                                            int lane) {
-  __syncwarp();
-  const long long qmax = stride - 2;
-  for (int i = lane; i < 6 * W32; i += 32) {
-    const int pl = i / W32;
-    const int w = i - pl * W32;
-    const bool vside = pl >= 3;
-    const int p = vside ? pl - 3 : pl;
-    P[i] = vside ? pool_word(L.planes + p * stride, qmax, L.sv + dv,
-                             L.vlen - dv, w, p == 2)
-                 : pool_word(L.planes + p * stride, qmax, L.su + du,
-                             L.ulen - du, w, p == 2);
-  }
-  __syncwarp();
-}
-
-// The exact match run at the start of the flank pair.
-__device__ __forceinline__ long long first_run(const Lane& L,
-                                               long long stride, int lane) {
-  const long long qmax = stride - 2;
-  const int64_t* p = L.planes;
-  for (long long c = 0;; c += 1024) {
-    const long long us = L.su + c, ul = L.ulen - c;
-    const long long vs = L.sv + c, vl = L.vlen - c;
-    const uint32_t m =
-        ~(pool_word(p, qmax, us, ul, lane, false) ^
-          pool_word(p, qmax, vs, vl, lane, false)) &
-        ~(pool_word(p + stride, qmax, us, ul, lane, false) ^
-          pool_word(p + stride, qmax, vs, vl, lane, false)) &
-        ~pool_word(p + 2 * stride, qmax, us, ul, lane, true) &
-        ~pool_word(p + 2 * stride, qmax, vs, vl, lane, true);
-    const unsigned notfull = __ballot_sync(GT_FULL, m != 0xffffffffu);
-    if (notfull) {
-      const int f = __ffs(notfull) - 1;
-      return c + 32 * f + gt_ctz_not(__shfl_sync(GT_FULL, m, f));
-    }
-  }
-}
-
-// out[g] (slot 32g + lane) = a[slot + delta], for any delta; values of
-// source slots outside [0, 32R) are undefined (the caller masks them).
-template <typename T>
-__device__ __forceinline__ void slot_shift(const T (&a)[R], T (&out)[R],
-                                           int delta, int lane) {
-  const int dr = delta & 31;
-  const int dq = delta >> 5;                 // floor division
-  const int src = (lane + dr) & 31;
-  const int carry = (lane + dr) >> 5;
-  T x[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) x[j] = __shfl_sync(GT_FULL, a[j], src);
-#pragma unroll
-  for (int g = 0; g < R; ++g) {
-    const int js = g + dq + carry;
-    T v = x[0];
-#pragma unroll
-    for (int j = 1; j < R; ++j)
-      if (js == j) v = x[j];
-    out[g] = v;
-  }
-}
 
 // One chunk of K2 on the first NG slot groups: score the state, then up
 // to a.gcap generations, pausing on window or slot-edge contact.
@@ -202,17 +115,10 @@ greedy_resident_kernel(const int64_t* __restrict__ pool, long long stride,
       smem + (size_t)(threadIdx.x >> 5) * 6 * (c.wt[c.nwt - 1] >> 5);
   for (;;) {
     // (a) the next lane
-    int i = 0;
-    if (lane == 0) i = atomicAdd(ctr, 1);
-    i = __shfl_sync(GT_FULL, i, 0);
+    const int i = gt_next_lane(ctr, lane);
     if (i >= N) break;
     const int t = order[i];
-    Lane L;
-    L.su = su_g[t];
-    L.ulen = ul_g[t];
-    L.sv = sv_g[t];
-    L.vlen = vl_g[t];
-    L.planes = pool + (rev_g[t] ? 3 : 0) * stride;
+    const Lane L = gt_lane(pool, stride, su_g, ul_g, sv_g, vl_g, rev_g, t);
     const long long seed = seed_g[t];
 
     // (b) generation 0: the seed's all-match history shifted by the
@@ -312,11 +218,11 @@ greedy_resident_kernel(const int64_t* __restrict__ pool, long long stride,
       const int delta = Dw - Dn + shift;
       int xr[R], xs[R], xm[R], xv[R];
       uint64_t xh[R];
-      slot_shift(row, xr, delta, lane);
-      slot_shift(h, xh, delta, lane);
-      slot_shift(hs, xs, delta, lane);
-      slot_shift(mm, xm, delta, lane);
-      slot_shift(val, xv, delta, lane);
+      gt_slot_shift<R, R>(row, xr, delta, lane);
+      gt_slot_shift<R, R>(h, xh, delta, lane);
+      gt_slot_shift<R, R>(hs, xs, delta, lane);
+      gt_slot_shift<R, R>(mm, xm, delta, lane);
+      gt_slot_shift<R, R>(val, xv, delta, lane);
 #pragma unroll
       for (int g = 0; g < R; ++g) {
         const int s = 32 * g + lane;
@@ -350,36 +256,14 @@ size_t window_smem(int wmax) {
   return (size_t)WARPS * 6 * (wmax / 32) * sizeof(uint32_t);
 }
 
-// Opt in to the window's shared memory; resident blocks per SM.
-cudaError_t prepare(int wmax, int* blocks) {
-  const size_t smem = window_smem(wmax);
-  cudaError_t e = cudaFuncSetAttribute(
-      greedy_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, greedy_resident_kernel, WARPS * 32, smem);
-}
-
 }  // namespace
 
 // out: resident blocks per SM with windows of up to wmax symbols,
 // registers a thread, SMs on the card.
 extern "C" int gt_greedy_resident_occupancy(int wmax, int* out) {
   if (wmax <= 0 || (wmax & 31)) return (int)cudaErrorInvalidValue;
-  int blocks = 0, dev = 0, sms = 0;
-  cudaError_t e = prepare(wmax, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, greedy_resident_kernel);
-  if (e != cudaSuccess) return (int)e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = blocks;
-  out[1] = attr.numRegs;
-  out[2] = sms;
-  return 0;
+  return (int)gt_occupancy(greedy_resident_kernel, WARPS * 32,
+                           window_smem(wmax), out);
 }
 
 // conf: nwt, wt[4], ndt, dt[4], GENS, max_chunks, cut_depth, mmp128, mad,
@@ -412,18 +296,12 @@ extern "C" int gt_greedy_resident(
          (j == 0 || c.wt[j] > c.wt[j - 1]);
   for (int j = 0; ok && j < c.ndt; ++j) ok = c.dt[j] >= 1 && c.dt[j] <= 64;
   if (!ok) return (int)cudaErrorInvalidValue;
-  const int wmax = c.wt[c.nwt - 1];
-  int blocks = 0, dev = 0, sms = 0;
-  cudaError_t e = prepare(wmax, &blocks);
+  const size_t smem = window_smem(c.wt[c.nwt - 1]);
+  int grid = 0;
+  cudaError_t e =
+      gt_persistent_grid(greedy_resident_kernel, WARPS, smem, N, &grid);
   if (e != cudaSuccess) return (int)e;
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  // persistent: one wave of resident blocks, no more than the lanes need
-  const int need = (N + WARPS - 1) / WARPS;
-  const int grid = blocks * sms < need ? blocks * sms : need;
-  greedy_resident_kernel<<<grid, WARPS * 32, window_smem(wmax),
+  greedy_resident_kernel<<<grid, WARPS * 32, smem,
                            (cudaStream_t)stream>>>(
       (const int64_t*)pool, stride, (const int64_t*)su, (const int64_t*)ul,
       (const int64_t*)sv, (const int64_t*)vl, (const uint8_t*)rev,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 M32 = 0xFFFFFFFF
+NEGINF = -(2 ** 30)    # an empty slot's row
 
 
 def _pos(c: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,11 @@ windowed chunk loop): the packed sequence pool is uploaded once
 (``ops/pool.py``), and every window a kernel reads comes from it on the
 device.
 
-1. Each task whose flanks both fit a K1 window runs whole in K1
-   (``ops/greedy_full.py``), in the first pass that holds it; lanes K1
-   leaves undone get one wide rescue pass.
+1. Each task whose flanks both fit K1's widest window runs whole in one
+   launch of K1 (``ops/greedy_full.py``), which reads its flanks from the
+   uploaded pool and moves a lane from the first slot tier to the next
+   when its front touches the slot edge; lanes K1 leaves undone get one
+   wide-slot rescue launch.
 2. The lanes left over (flanks longer than 1,536, or undone) run the
    windowed chunk loop (``ops/chunk_loop.py``, the reference's
    greedy_batch.py:688-868): generation 0 is the seed's match run, then
@@ -48,8 +50,7 @@ from .greedy import PolishingInfo
 from .greedy_chunk import greedy_chunk
 from .greedy_full import check_history, greedy_full
 from .greedy_resident import greedy_resident
-from .pool import (chunk_gen0, chunk_windows, pk_from_pool, pool_flanks,
-                   upload_pool)
+from .pool import chunk_gen0, chunk_windows, pool_flanks, upload_pool
 
 # lanes finished by K1, by the resident kernel and by the host-driven
 # chunk loop with K2 (kernels or plain versions), and lanes routed to the
@@ -64,15 +65,17 @@ def reset_stats() -> None:
 
 
 class GreedyBatchConfig:
-    # (W, D, GENS) single-shot passes: a task runs in the first pass
-    # whose window holds both flanks
-    FULL_PASSES = ((256, 64, 1536), (384, 64, 1536), (768, 64, 1536),
-                   (1536, 64, 1536))
-    # one wide-slot retry for lanes undone at their pass (None: none)
-    RESCUE = (1536, 128, 6144)
-    # lanes per launch: bounds the gathered task array (1.2 KB a lane
-    # at W=1536), not the kernel
-    MAX_WAVE = 1 << 18
+    # K1: a task runs there when both flanks fit FULL_W symbols (0: no
+    # K1; its window is its flanks rounded up to 32); slot tiers FULL_D,
+    # a lane moving up on slot-edge contact; FULL_GENS generations at
+    # most. The reference's passes ran every lane at D = 64; the first
+    # tier, 16, holds the live front of seed_extend's default trims
+    # (PERF.md).
+    FULL_W = 1536
+    FULL_D = (16, 64)
+    FULL_GENS = 1536
+    # one wide-slot retry (D, GENS) for lanes undone in K1 (None: none)
+    RESCUE = (128, 6144)
     # the windowed chunk loop: window and slot tiers, chunks (per lane)
     # and lanes per K2 launch as in the reference; GENS is the port's
     # own, from a card measurement (PERF.md)
@@ -174,13 +177,10 @@ def greedy_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
                                 torch.from_numpy(v_len),
                                 torch.from_numpy(rev), torch.from_numpy(sl))]
 
-    def run(Fs, W, D, GENS):
+    def run(Fs, d_tiers, GENS):
         idx = torch.from_numpy(Fs).to(dev)
-        pk = pk_from_pool(gp, *(a[idx] for a in desc[:4]), desc[4][idx],
-                          desc[5][idx], W)
-        return greedy_full(pk, *sc, W, D, GENS)
-
-    def collect(Fs, out):
+        out, _ = greedy_full(gp, *(a[idx] for a in desc), *sc, cfg.FULL_W,
+                             d_tiers, GENS)
         out = out.cpu().numpy()
         done_o = out[4] != 0
         fin = Fs[done_o]
@@ -192,25 +192,13 @@ def greedy_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
         todo[fin] = False
         stats["kernel_lanes"] += int(fin.size)
 
-    maxlen = np.maximum(u_len, v_len)
-    assigned = ~((u_len >= 1) & (v_len >= 1))
-    pending = []
-    for W0, Df, Gf in cfg.FULL_PASSES:
-        sel = ~assigned & (maxlen <= W0)
-        assigned |= sel
-        fast = np.flatnonzero(sel)
-        # length-sorted lanes keep neighbouring warps similar in length
-        fast = fast[np.argsort(u_len[fast] + v_len[fast], kind="stable")]
-        for s in range(0, fast.size, cfg.MAX_WAVE):
-            Fs = fast[s:s + cfg.MAX_WAVE]
-            pending.append((Fs, run(Fs, W0, Df, Gf)))
-    for Fs, out in pending:
-        collect(Fs, out)
-    if cfg.RESCUE is not None:
-        Wr, Dr, Gr = cfg.RESCUE
-        Fs = np.flatnonzero(todo & (maxlen <= Wr))
-        if Fs.size:
-            collect(Fs, run(Fs, Wr, Dr, Gr))
+    fits = (np.maximum(u_len, v_len) <= cfg.FULL_W) & (cfg.FULL_W > 0)
+    Fs = np.flatnonzero(fits)
+    if Fs.size:
+        run(Fs, cfg.FULL_D, cfg.FULL_GENS)
+    Fs = np.flatnonzero(todo & fits)
+    if cfg.RESCUE is not None and Fs.size:
+        run(Fs, (cfg.RESCUE[0],), cfg.RESCUE[1])
 
     rest = np.flatnonzero(todo)
     if rest.size and not skip_chunked:

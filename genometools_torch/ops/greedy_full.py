@@ -5,28 +5,33 @@ Replaces the Pallas kernel ``genometools_tpu/ops/greedy_pallas.py``
 ``greedy_full_pallas`` (``pl.pallas_call`` at greedy_pallas.py:531).
 It runs a whole greedy extension (ref: ft-front-prune.c:633
 front_prune_edist_inplace plus the ft-polish.c polishing test) for
-every task whose flanks both fit one W-symbol window: generation 0 is
+every lane whose flanks both fit a W-symbol window: generation 0 is
 built in the kernel (the seed's all-match history and its first match
 run), then each generation extends the K = 2D+1 diagonal slots by
 their match runs, picks the best predecessor (ins > mis > del on row
 ties), shifts the 64-bit match history, trims by percmathistory and
 maxalignedlendifference, and walks the 2x15-bit polishing test. Lanes
-that touch the slot edge or reach the generation cap come back undone.
+that touch the slot edge of the last slot tier, or reach the
+generation cap, come back undone.
 
-PK: (N, 6*W/32+3) int32 holding uint32 bit patterns — lo, hi and
-special bit-planes of the U and V windows (W/32 words each), then
-seedlen, ulen, vlen. Result: (7, N) int32 — best alignedlen, row,
-distance, mismatches, then done, died, undone.
+Input: the uploaded pool (``ops/pool.py``) and per lane ustart, ulen,
+vstart, vlen, rev, seedlen, read by the kernel itself. Slot tiers
+d_tiers: a lane starts at the first and moves to the next when its
+front touches the slot edge; the paused generation was not committed,
+so it goes on from its state, widened, with the generations it has
+left. Result: (7, N) int32 (best alignedlen, row, distance,
+mismatches, then done, died, undone) and the live slot-generations of
+the run.
 
-On the card (csrc/greedy_full.cu) the task is one warp: the K slots
-spread over the 32 threads (slot s = 32*g + lane), slot shifts are
-warp shuffles, reductions and first-occurrence argmax are warp
-reductions, and the history is a native uint64_t. The match words are
-computed on the fly from the six planes held in shared memory; the
-(W/32, K, N) match bitmask of the TPU kernel is never materialised
-(24.8 KB per lane at W=1536, D=64). The kernel is bound by the serial
-generation chain of each task (integer and shuffle instructions), not
-by memory: each lane reads its 6*W/32 words once and writes 7 words.
+On the card (csrc/greedy_full.cu) warps persist and take lanes from a
+queue, longest first; a lane is one warp, the K slots spread over the
+32 threads (slot s = 32*g + lane), slot shifts are warp shuffles,
+reductions and first-occurrence argmax are warp reductions, and the
+history is a native uint64_t. The match words are computed on the fly
+from the lane's window planes, read from the pool into shared memory;
+the (W/32, K, N) match bitmask of the TPU kernel is never built. The
+kernel is bound by the serial generation chain of each lane (integer
+and shuffle instructions), not by memory.
 
 The plain version below is lane-vectorised over (N, K) with a Python
 generation loop; it materialises the match words and is meant for CPU
@@ -37,14 +42,17 @@ from __future__ import annotations
 
 import torch
 
-from .. import _kernels
-from .bits import (M32, ctz32, from_i32_bits, ones64, polish_walk,
-                   popcount64, shl64)
-
-NEGINF = -(2 ** 30)
+from .bits import (M32, NEGINF, ctz32, ones64, polish_walk, popcount64,
+                   shl64)
+from .pool import (check_lanes, kernel_occupancy, launch_pool_kernel,
+                   window_planes)
 UNROLL = 4          # the reference checks its generation cap every 4
 
 launches = 0        # kernel launches (the CUDA path only)
+# the work of those launches, for the kernel's bound: live
+# slot-generations, and bytes moved (pool planes, lane descriptors and
+# outputs, each once)
+work = {"slot_gens": 0, "bytes": 0}
 
 
 def check_history(hist_cap: int) -> None:
@@ -125,8 +133,8 @@ def match_run(M: torch.Tensor, row: torch.Tensor,
 
 
 def front_plain(P: torch.Tensor, st: dict, sc: tuple, W: int, D: int,
-                GENS: int, run_first: bool, counts: dict | None = None
-                ) -> dict:
+                GENS: int, run_first: bool, counts: dict | None = None,
+                cap: int | None = None) -> dict:
     """The front recurrence of K1 and K2, lane-vectorised over (N, K).
 
     P: (N, 6, W32) plane words of the U and V windows. st: the input
@@ -145,7 +153,8 @@ def front_plain(P: torch.Tensor, st: dict, sc: tuple, W: int, D: int,
     rolled back and the lane pauses. Returns the same keys plus
     `paused` (N, 1). counts, when a dict, gains under "slot_gens" the
     live slots summed over every lane's generations (the work the
-    data needs, for a kernel's operation bound)."""
+    data needs, for a kernel's operation bound). cap: a lane runs no
+    generation once d_lane reaches it (K1's later slot tiers)."""
     mmp128, mad, match_score, difference_score, hist_cap, cut_depth = sc
     dev = P.device
     N, _, W32 = P.shape
@@ -266,6 +275,8 @@ def front_plain(P: torch.Tensor, st: dict, sc: tuple, W: int, D: int,
 
     for _ in range(gens_cap(GENS)):
         act = ~s["done"] & ~s["paused"]
+        if cap is not None:
+            act &= s["d_lane"] < cap
         nact = int(act.sum())
         if nact == 0:
             break
@@ -340,76 +351,134 @@ def front_plain(P: torch.Tensor, st: dict, sc: tuple, W: int, D: int,
     return final
 
 
-def greedy_full_plain(PK: torch.Tensor, mmp128: int, mad: int,
-                      match_score: int, difference_score: int,
-                      hist_cap: int, W: int, D: int, GENS: int,
-                      cut_depth: int = 15,
+def _widen(f: dict, sel: torch.Tensor, D0: int, D1: int) -> dict:
+    """The state of the lanes sel of a front_plain result at slot tier
+    D0, recentred at D1 > D0 (new slot s holds old slot s - (D1 - D0);
+    slots from outside tier 0 are invalid), as the kernel widens it."""
+    off = D1 - D0
+    valid = f["valid"][sel]
+    m, K0 = valid.shape
+
+    def pad(x, fill):
+        out = torch.full((m, 2 * D1 + 1), fill, dtype=x.dtype,
+                         device=x.device)
+        out[:, off:off + K0] = torch.where(valid, x[sel], fill)
+        return out
+    st = {k: pad(f[k], fill) for k, fill in (
+        ("row", NEGINF), ("hlo", 0), ("hhi", 0), ("hs", 0), ("mm", 0),
+        ("valid", False))}
+    st.update({k: f[k][sel] for k in ("d_lane", "done", "died")})
+    st["best"] = [b[sel] for b in f["best"]]
+    return st
+
+
+def greedy_full_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
+                      seedlen, mmp128: int, mad: int, match_score: int,
+                      difference_score: int, hist_cap: int, W: int,
+                      d_tiers, GENS: int, cut_depth: int = 15,
                       counts: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of K1 (same inputs and (7, N) result);
+    """Plain PyTorch version of K1 (same inputs and (7, N) result); every
+    lane's window is W symbols (the kernel rounds a lane's flanks up to
+    32 instead: a window that holds both flanks gives the same result).
     counts: see front_plain."""
-    dev = PK.device
-    N = PK.shape[0]
-    W32 = W // 32
-    K = 2 * D + 1
-    P = from_i32_bits(PK[:, :6 * W32]).reshape(N, 6, W32)
-    cols = PK[:, 6 * W32:6 * W32 + 3].to(torch.int64)
-    seedl = cols[:, 0:1]
+    dev = gp.device
+    N = ustart.numel()
+    P = window_planes(gp, ustart, ulen, vstart, vlen, rev, W)
+    seedl = seedlen.view(N, 1)
     i64 = dict(dtype=torch.int64, device=dev)
+    sc = (mmp128, mad, match_score, difference_score, hist_cap, cut_depth)
     # generation 0: the seed's all-match history at the centre slot
-    center = (torch.arange(K, device=dev) == D).view(1, K).expand(N, K)
+    D0 = d_tiers[0]
+    K = 2 * D0 + 1
+    center = (torch.arange(K, device=dev) == D0).view(1, K).expand(N, K)
     slo0, shi0 = ones64(seedl)
     zero = torch.zeros(N, 1, **i64)
     false = torch.zeros(N, 1, dtype=torch.bool, device=dev)
+    urem, vrem = ulen.view(N, 1), vlen.view(N, 1)
     st = dict(row=torch.where(center, 0, NEGINF).to(torch.int64),
               hlo=torch.where(center, slo0, 0),
               hhi=torch.where(center, shi0, 0),
               hs=torch.where(center, seedl.clamp(max=hist_cap), 0),
               mm=torch.zeros(N, K, **i64), valid=center.clone(),
-              d_lane=zero, done=false, died=false, urem=cols[:, 1:2],
-              vrem=cols[:, 2:3], kbase=zero, rowbase=zero,
-              best=[zero] * 4)
-    f = front_plain(P, st, (mmp128, mad, match_score, difference_score,
-                            hist_cap, cut_depth), W, D, GENS, True, counts)
-    done_i = f["done"].to(torch.int64)
-    out = torch.cat([*f["best"], done_i, f["died"].to(torch.int64) & done_i,
-                     1 - done_i], dim=1)
+              d_lane=zero, done=false, died=false, urem=urem, vrem=vrem,
+              kbase=zero, rowbase=zero, best=[zero] * 4)
+    f = front_plain(P, st, sc, W, D0, GENS, True, counts)
+    res = {"best": [b.clone() for b in f["best"]], "done": f["done"].clone(),
+           "died": f["died"].clone()}
+    lanes = torch.arange(N, device=dev)
+    # lanes paused at a slot tier's edge go on at the next tier
+    for D1 in d_tiers[1:]:
+        sel = (f["paused"] & ~f["done"]).view(-1)
+        if not bool(sel.any()):
+            break
+        lanes = lanes[sel]
+        st = _widen(f, sel, D0, D1)
+        st.update(urem=urem[lanes], vrem=vrem[lanes], kbase=zero[lanes],
+                  rowbase=zero[lanes])
+        f = front_plain(P[lanes], st, sc, W, D1, GENS, False, counts,
+                        cap=gens_cap(GENS))
+        for i in range(4):
+            res["best"][i][lanes] = f["best"][i]
+        res["done"][lanes] = f["done"]
+        res["died"][lanes] = f["died"]
+        D0 = D1
+    done_i = res["done"].to(torch.int64)
+    out = torch.cat([*res["best"], done_i,
+                     res["died"].to(torch.int64) & done_i, 1 - done_i],
+                    dim=1)
     return out.T.contiguous().to(torch.int32)
 
 
-def greedy_full(PK: torch.Tensor, mmp128: int, mad: int, match_score: int,
-                difference_score: int, hist_cap: int, W: int, D: int,
-                GENS: int, cut_depth: int = 15) -> torch.Tensor:
-    """K1 on PK's device: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Returns (7, N) int32 on that device."""
+def greedy_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev, seedlen,
+                mmp128: int, mad: int, match_score: int,
+                difference_score: int, hist_cap: int, W: int, d_tiers,
+                GENS: int, cut_depth: int = 15):
+    """K1 on the pool's device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. W: the widest window (a lane longer
+    than it pauses at the window and comes back undone). Returns the
+    (7, N) int32 result and the live slot-generations, (1,) int64, both
+    on that device."""
     global launches
     check_history(hist_cap)
-    W32 = W // 32
-    if W % 32 or W <= 0 or not 1 <= D <= 143 or GENS < 0:
-        raise ValueError(f"unsupported shape W={W} D={D} GENS={GENS}")
-    if PK.dim() != 2 or PK.shape[1] != 6 * W32 + 3:
-        raise ValueError(f"PK must be (N, {6 * W32 + 3}), got "
-                         f"{tuple(PK.shape)}")
-    if PK.dtype != torch.int32:
-        raise TypeError(f"PK must be int32 bit patterns, got {PK.dtype}")
+    d_tiers = tuple(int(D) for D in d_tiers)
+    if W % 32 or W <= 0 or not d_tiers or GENS < 0 or \
+            not all(1 <= D <= 143 for D in d_tiers) or \
+            list(d_tiers) != sorted(set(d_tiers)):
+        raise ValueError(f"unsupported shape W={W} d_tiers={d_tiers} "
+                         f"GENS={GENS}")
     if cut_depth != 15:
         raise NotImplementedError("cut_depth 15 only (history >= 30)")
-    if PK.device.type == "cpu":
-        return greedy_full_plain(PK, mmp128, mad, match_score,
-                                 difference_score, hist_cap, W, D, GENS,
-                                 cut_depth)
-    if PK.device.type != "cuda":
-        raise ValueError(f"unsupported device {PK.device}")
-    if not PK.is_contiguous():
-        raise ValueError("PK must be contiguous")
-    N = PK.shape[0]
-    out = torch.empty((7, N), dtype=torch.int32, device=PK.device)
+    desc = (ustart, ulen, vstart, vlen, rev, seedlen)
+    check_lanes(gp, desc)
+    sc = (int(mmp128), int(mad), int(match_score), int(difference_score),
+          int(hist_cap))
+    if gp.device.type == "cpu":
+        cnt = {}
+        out = greedy_full_plain(gp, *desc, *sc, W, d_tiers, GENS,
+                                cut_depth, counts=cnt)
+        return out, torch.tensor([cnt.get("slot_gens", 0)])
+    if gp.device.type != "cuda":
+        raise ValueError(f"unsupported device {gp.device}")
+    if len(d_tiers) > 2:
+        raise ValueError(f"the kernel holds two slot tiers, got {d_tiers}")
+    N = ustart.numel()
+    out = torch.empty((7, N), dtype=torch.int32, device=gp.device)
     if N == 0:
-        return out
-    L = _kernels.lib()
-    err = L.gt_greedy_full(
-        PK.data_ptr(), out.data_ptr(), N, W, D, gens_cap(GENS), cut_depth,
-        int(mmp128), int(mad), int(match_score), int(difference_score),
-        int(hist_cap), _kernels.stream_ptr(PK.device))
-    _kernels.check(err, "gt_greedy_full")
+        return out, torch.zeros(1, dtype=torch.int64, device=gp.device)
+    conf = [W, d_tiers[0], d_tiers[1] if len(d_tiers) > 1 else 0,
+            gens_cap(GENS), cut_depth, *sc]
+    slot_gens = launch_pool_kernel("gt_greedy_full", gp, desc, conf, out)
     launches += 1
-    return out
+    work["slot_gens"] += int(slot_gens)
+    work["bytes"] += gp.numel() * 8 + 41 * N + out.numel() * 4
+    return out, slot_gens
+
+
+def occupancy(W: int, d_tiers) -> dict:
+    """The kernel's occupancy on the current card for windows of up to W
+    symbols at these slot tiers: resident warps per SM, registers a
+    thread, SMs."""
+    d_tiers = tuple(d_tiers)
+    return kernel_occupancy("gt_greedy_full_occupancy", [
+        W, d_tiers[0], d_tiers[1] if len(d_tiers) > 1 else 0, 0, 15, 0, 0,
+        0, 0, 64])

@@ -39,13 +39,13 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from .bits import M32, ctz32, to_i32_bits
+from .bits import M32, ctz32
 from .chunk_loop import chunk_loop
 from .greedy_chunk import greedy_chunk_plain
 from .greedy_full import check_history, gens_cap
-from .pool import gen0_state, seed_history
+from .pool import (check_lanes, gen0_state, kernel_occupancy,
+                   pool_windows_plain, seed_history)
 
-WARPS = 4           # warps a block (csrc/greedy_resident.cu)
 MAX_D = 64          # the kernel keeps at most 5 slot groups (K <= 160)
 
 launches = 0        # kernel launches (the CUDA path only)
@@ -53,36 +53,6 @@ launches = 0        # kernel launches (the CUDA path only)
 # slot-generations, and bytes moved (pool planes, lane descriptors and
 # outputs, each once)
 work = {"slot_gens": 0, "bytes": 0}
-
-
-def pool_windows_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
-                       du, dv, W: int) -> torch.Tensor:
-    """The (n, 6*W/32) int32 window planes u[du:du+W], v[dv:dv+W] read
-    from the pool as the kernel reads them: word q = start >> 5 (capped
-    at the last pool word), a funnel shift of the word pair (q, q+1) by
-    start & 31, symbols past a flank special with zero code bits.
-    Equals chunk_windows."""
-    W32 = W // 32
-    dev = gp.device
-    qmax = gp.shape[1] - 2
-    w = torch.arange(W32, device=dev).view(1, W32)
-    plane = torch.where(rev.view(-1, 1), 3, 0)
-
-    def side(start, length):
-        q = ((start >> 5).view(-1, 1) + w).clamp(max=qmax)
-        r = (start & 31).view(-1, 1)
-        nb = (length.view(-1, 1) - 32 * w).clamp(0, 32)
-        live = torch.where(nb >= 32, M32, (1 << nb.clamp(max=31)) - 1)
-        words = []
-        for p in range(3):
-            pl = gp[(plane + p).expand_as(q), q]
-            ph = gp[(plane + p).expand_as(q), q + 1]
-            x = ((ph << 32) | pl) >> r & M32
-            words.append(x | (live ^ M32) if p == 2 else x & live)
-        return words
-
-    return to_i32_bits(torch.cat(side(ustart + du, ulen - du)
-                                 + side(vstart + dv, vlen - dv), dim=1))
 
 
 def resident_gen0_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
@@ -151,17 +121,7 @@ def greedy_resident_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen,
 
 
 def _check(gp, desc, w_tiers, d_tiers, GENS, max_chunks):
-    if gp.dim() != 2 or gp.shape[0] != 6 or gp.dtype != torch.int64:
-        raise ValueError("gp must be the (6, words) int64 pool planes")
-    n = desc[0].numel()
-    for name, t, dt in zip(("ustart", "ulen", "vstart", "vlen", "rev",
-                            "seedlen"), desc,
-                           (torch.int64,) * 4 + (torch.bool, torch.int64)):
-        if tuple(t.shape) != (n,) or t.dtype != dt:
-            raise ValueError(f"{name} must be {dt} of shape ({n},), got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != gp.device:
-            raise ValueError(f"{name} is on {t.device}, gp on {gp.device}")
+    check_lanes(gp, desc)
     if not 1 <= len(w_tiers) <= 4 or not 1 <= len(d_tiers) <= 4 or \
             any(W % 32 or W <= 0 for W in w_tiers) or \
             any(not 1 <= D <= MAX_D for D in d_tiers) or \
@@ -175,11 +135,7 @@ def _check(gp, desc, w_tiers, d_tiers, GENS, max_chunks):
 def resident_occupancy(wmax: int) -> dict:
     """The kernel's occupancy on the current card with windows of up to
     wmax symbols: resident warps per SM, registers a thread, SMs."""
-    out = (ctypes.c_int * 3)()
-    _kernels.check(_kernels.lib().gt_greedy_resident_occupancy(wmax, out),
-                   "gt_greedy_resident_occupancy")
-    return {"warps_per_sm": out[0] * WARPS, "registers": out[1],
-            "sms": out[2]}
+    return kernel_occupancy("gt_greedy_resident_occupancy", wmax)
 
 
 def greedy_resident(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,

@@ -4,18 +4,23 @@ generation-0 states the greedy kernels read from it.
 Counterpart of the pool helpers in ``genometools_tpu/ops/greedy_batch.py``
 (``pack_pool``, the pool-resident window gather) and of its host
 generation 0 (``_host_lcp``, greedy_batch.py:701-716). The pool is
-uploaded once (``upload_pool``); every window a kernel reads is gathered
-from it on the device (``pk_from_pool``), or read by the kernel itself
-(``csrc/greedy_resident.cu``).
+uploaded once (``upload_pool``). The persistent kernels K1, K2r and K3
+read their windows from it themselves (``csrc/pool.cuh``;
+``pool_windows_plain`` is the plain twin of that reader, and
+``launch_pool_kernel`` launches K1 and K3 over a queue of lanes); K2 on
+the host-driven chunk route takes windows gathered on the device
+(``pk_from_pool``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .bits import M32, ctz32, from_i32_bits, to_i32_bits
-from .greedy_full import NEGINF
+from .. import _kernels
+from .bits import M32, NEGINF, ctz32, from_i32_bits, to_i32_bits
 
 
 def pack_codes(X: np.ndarray):
@@ -71,7 +76,9 @@ def upload_pool(pool: np.ndarray, device) -> torch.Tensor:
 
 def pk_from_pool(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
                  seedlen, W: int) -> torch.Tensor:
-    """Gather the (N, 6*W/32+3) int32 task array from the uploaded pool.
+    """Gather the (N, 6*W/32+3) int32 task array from the uploaded pool
+    (the host-driven chunk route's windows, and the kernels' first
+    design's task arrays).
     Starts are in the chosen plane set's coordinates (reversed flanks
     at T - off - len of the reversed planes). Pad symbols beyond a
     flank are special with zero code bits; seedlen=None drops the
@@ -185,3 +192,97 @@ def chunk_windows(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev, du,
     pk = pk_from_pool(gp, ustart + du, ulen - du, vstart + dv, vlen - dv,
                       rev, None, W)
     return pk[:, :6 * (W // 32)].contiguous()
+
+
+def pool_windows_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
+                       du, dv, W: int) -> torch.Tensor:
+    """The (n, 6*W/32) int32 window planes u[du:du+W], v[dv:dv+W] read
+    from the pool as the kernels read them (csrc/pool.cuh load_window):
+    word q = start >> 5 (capped at the last pool word), a funnel shift of
+    the word pair (q, q+1) by start & 31, symbols past a flank special
+    with zero code bits. Equals chunk_windows."""
+    W32 = W // 32
+    dev = gp.device
+    qmax = gp.shape[1] - 2
+    w = torch.arange(W32, device=dev).view(1, W32)
+    plane = torch.where(rev.view(-1, 1), 3, 0)
+
+    def side(start, length):
+        q = ((start >> 5).view(-1, 1) + w).clamp(max=qmax)
+        r = (start & 31).view(-1, 1)
+        nb = (length.view(-1, 1) - 32 * w).clamp(0, 32)
+        live = torch.where(nb >= 32, M32, (1 << nb.clamp(max=31)) - 1)
+        words = []
+        for p in range(3):
+            pl = gp[(plane + p).expand_as(q), q]
+            ph = gp[(plane + p).expand_as(q), q + 1]
+            x = ((ph << 32) | pl) >> r & M32
+            words.append(x | (live ^ M32) if p == 2 else x & live)
+        return words
+
+    return to_i32_bits(torch.cat(side(ustart + du, ulen - du)
+                                 + side(vstart + dv, vlen - dv), dim=1))
+
+
+def window_planes(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
+                  W: int) -> torch.Tensor:
+    """(n, 6, W/32) int64 plane words of the lanes' windows at their
+    flanks' starts (the plain versions' input)."""
+    P = pool_windows_plain(gp, ustart, ulen, vstart, vlen, rev, 0, 0, W)
+    return from_i32_bits(P).view(-1, 6, W // 32)
+
+
+LANE_NAMES = ("ustart", "ulen", "vstart", "vlen", "rev", "seedlen")
+
+
+def check_lanes(gp: torch.Tensor, desc, names=LANE_NAMES) -> None:
+    """gp must be the (6, words) int64 pool planes and desc its lanes:
+    ustart, ulen, vstart, vlen (int64), rev (bool)[, seedlen (int64)],
+    one length, on gp's device."""
+    if gp.dim() != 2 or gp.shape[0] != 6 or gp.dtype != torch.int64:
+        raise ValueError("gp must be the (6, words) int64 pool planes")
+    n = desc[0].numel()
+    for name, t in zip(names, desc):
+        dt = torch.bool if name == "rev" else torch.int64
+        if tuple(t.shape) != (n,) or t.dtype != dt:
+            raise ValueError(f"{name} must be {dt} of shape ({n},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != gp.device:
+            raise ValueError(f"{name} is on {t.device}, gp on {gp.device}")
+
+
+def launch_pool_kernel(fn: str, gp: torch.Tensor, desc, conf,
+                       out: torch.Tensor) -> torch.Tensor:
+    """Launch the persistent kernel `fn` (gt_greedy_full, gt_xdrop_full)
+    over the lanes desc on the pool gp (CUDA tensors): a warp takes lanes
+    from a queue sorted longest first and writes lane t's result at
+    out[:, t]. Returns the live slot-generations the launch counted,
+    (1,) int64 on the device."""
+    dev = gp.device
+    gp = gp.contiguous()
+    desc = [t.contiguous() for t in desc]
+    n = desc[0].numel()
+    order = torch.argsort(desc[1] + desc[3], descending=True,
+                          stable=True).to(torch.int32)
+    ctr = torch.zeros(1, dtype=torch.int32, device=dev)
+    slot_gens = torch.zeros(1, dtype=torch.int64, device=dev)
+    ptrs = (ctypes.c_void_p * len(desc))(*(t.data_ptr() for t in desc))
+    conf_c = (ctypes.c_int * len(conf))(*conf)
+    err = getattr(_kernels.lib(), fn)(
+        gp.data_ptr(), gp.shape[1], ptrs, order.data_ptr(), ctr.data_ptr(),
+        out.data_ptr(), slot_gens.data_ptr(), conf_c, n,
+        _kernels.stream_ptr(dev))
+    _kernels.check(err, fn)
+    return slot_gens
+
+
+def kernel_occupancy(fn: str, conf) -> dict:
+    """The occupancy of the kernel a conf launches (fn:
+    gt_greedy_full_occupancy, gt_xdrop_full_occupancy,
+    gt_greedy_resident_occupancy with a window width): resident warps per
+    SM (4 warps a block), registers a thread, SMs."""
+    out = (ctypes.c_int * 3)()
+    arg = (ctypes.c_int * len(conf))(*conf) \
+        if isinstance(conf, (list, tuple)) else int(conf)
+    _kernels.check(getattr(_kernels.lib(), fn)(arg, out), fn)
+    return {"warps_per_sm": out[0] * 4, "registers": out[1], "sms": out[2]}

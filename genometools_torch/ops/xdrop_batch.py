@@ -2,12 +2,19 @@
 
 Counterpart of ``genometools_tpu/ops/xdrop_batch.py``'s device paths
 (``_pallas_tiered``, ``xdrop_extend_batch_exact``,
-``_xdrop_pk_from_pool``, ``xdrop_extend_batch_pool``): lanes run in K3
-(``ops/xdrop_full.py``) at the first window tier (256, 512) that holds
-them; lanes longer than 512, lanes whose end diagonal lies outside the
-D=32 band, and lanes K3 reports unsafe re-run on the exact host engine
-(``_host_exact``), so the merged result is bit-equal to the scalar
-engine ``ops/xdrop.py::xdrop_extend`` on every lane.
+``_xdrop_pk_from_pool``, ``xdrop_extend_batch_pool``): every lane runs in
+one launch of K3 (``ops/xdrop_full.py``), which reads its flanks from
+the uploaded pool clipped at a window tier and moves a lane to the next
+tier when its front reaches the clip or the generation cap. The lanes K3
+reports unsafe re-run on the exact host engine (``_host_exact``), so the
+merged result is bit-equal to the scalar engine
+``ops/xdrop.py::xdrop_extend`` on every lane.
+
+The reference sends lanes longer than 512 and lanes whose end diagonal
+lies outside its D = 32 band to the host before its kernel runs,
+because its windows had to fit TPU VMEM (its xdrop_batch.py:293-309).
+Neither filter is needed for exactness here (ops/xdrop_full.py), so K3
+takes those lanes too.
 """
 
 from __future__ import annotations
@@ -17,21 +24,36 @@ import torch
 
 from ..core.native import xdrop_batch_native
 from ..device import resolve_device
-from .pool import pk_from_pool, pool_flanks, upload_pool
+from .pool import pool_flanks, upload_pool
 from .xdrop_full import xdrop_full
 
-D_BAND = 32          # K = 65 slots; lanes leaving the band re-run exactly
-TIERS = (256, 512)
-GENS = 512
+# K = 129 slots: on at1MB's workload D = 32 leaves a tenth of the lanes
+# at the slot edge, D = 64 under 1 % (PERF.md); the kernel computes only
+# the slot groups the live window holds, so a narrow front costs the same
+D_BAND = 64
+# (W, GENS) window tiers, from at1MB's flank lengths (PERF.md): flanks are
+# clipped at W; the first holds 98 % of them, the second every one. A
+# lane still unsafe at the second goes to the host engine
+TIERS = ((512, 512), (2048, 2048))
+# the reference's routing filters (its xdrop_batch.py:309), counted in
+# stats: lanes longer than its widest window, or with |ulen - vlen|
+# beyond its band
+REF_MAXLEN, REF_BAND = 512, 32
 
-# lanes finished by K3 (kernel or plain version) and lanes routed to the
-# host engine, summed over calls; reset with reset_stats()
-stats = {"kernel_lanes": 0, "host_lanes": 0}
+# lanes finished by K3 (kernel or plain version), by the tier they
+# finished at, among them those the reference's filters route to the host
+# (longer than REF_MAXLEN, |ulen - vlen| > REF_BAND); lanes routed to the host
+# engine; all lanes those filters route to the host. Summed over calls;
+# reset with reset_stats()
+stats: dict = {}
 
 
 def reset_stats() -> None:
-    stats["kernel_lanes"] = 0
-    stats["host_lanes"] = 0
+    stats.update(kernel_lanes=0, tier_lanes=[0] * len(TIERS), long_lanes=0,
+                 offband_lanes=0, host_lanes=0, filtered_lanes=0)
+
+
+reset_stats()
 
 
 def _host_exact(us, vs, belowscore):
@@ -50,44 +72,33 @@ def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
     (both reversed when rev[i]). Returns int64 (ivalue, jvalue, score)."""
     dev = resolve_device(device)
     N = int(np.asarray(u_off).size)
-    z = np.zeros(N, np.int64)
-    iv, jv, sv = z.copy(), z.copy(), z.copy()
     if N == 0:
-        return iv, jv, sv
+        z = np.zeros(0, np.int64)
+        return z, z.copy(), z.copy()
     u_off = np.asarray(u_off, np.int64)
     u_len = np.asarray(u_len, np.int64)
     v_off = np.asarray(v_off, np.int64)
     v_len = np.asarray(v_len, np.int64)
     rev = np.asarray(rev, bool)
-    lens = np.maximum(u_len, v_len)
-    dif = np.abs(u_len - v_len)
-    host_mask = (lens > TIERS[-1]) | (dif > D_BAND)
-    redo = [np.flatnonzero(host_mask)]
     T = pool.size
     if gp is None:
         gp = upload_pool(pool, dev)
     desc = [torch.from_numpy(a).to(dev) for a in (
         np.where(rev, T - u_off - u_len, u_off), u_len,
         np.where(rev, T - v_off - v_len, v_off), v_len, rev)]
-    pending = []
-    for W in TIERS:
-        tier = np.flatnonzero(~host_mask & (lens <= W))
-        host_mask[tier] = True
-        if tier.size == 0:
-            continue
-        tier = tier[np.argsort(lens[tier], kind="stable")]
-        idx = torch.from_numpy(tier).to(dev)
-        pk = pk_from_pool(gp, *(a[idx] for a in desc), None, W)
-        pending.append((tier, xdrop_full(pk, belowscore, W, D_BAND, GENS)))
-    for tier, out in pending:
-        out = out.cpu().numpy()
-        iv[tier] = out[0]
-        jv[tier] = out[1]
-        sv[tier] = out[2]
-        bad = out[3] != 0
-        redo.append(tier[bad])
-        stats["kernel_lanes"] += int((~bad).sum())
-    redo = np.concatenate(redo)
+    out, _ = xdrop_full(gp, *desc, belowscore, TIERS, D_BAND)
+    out = out.cpu().numpy().astype(np.int64)
+    iv, jv, sv = out[0], out[1], out[2]
+    ok = out[3] == 0
+    stats["kernel_lanes"] += int(ok.sum())
+    stats["tier_lanes"] = [a + int(b) for a, b in zip(
+        stats["tier_lanes"], np.bincount(out[4][ok], minlength=len(TIERS)))]
+    long = np.maximum(u_len, v_len) > REF_MAXLEN
+    offband = np.abs(u_len - v_len) > REF_BAND
+    stats["long_lanes"] += int((ok & long).sum())
+    stats["offband_lanes"] += int((ok & offband).sum())
+    stats["filtered_lanes"] += int((long | offband).sum())
+    redo = np.flatnonzero(~ok)
     if redo.size:
         stats["host_lanes"] += int(redo.size)
         us, vs = pool_flanks(pool, u_off, u_len, v_off, v_len, rev, redo)

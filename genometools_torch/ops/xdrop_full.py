@@ -4,22 +4,31 @@ Replaces the Pallas kernel ``genometools_tpu/ops/xdrop_pallas.py``
 ``_make_kernel`` launched by ``_xdrop_pallas`` / ``xdrop_full_pallas``
 (``pl.pallas_call`` at xdrop_pallas.py:301): a whole xdrop extension
 (ref: xdrop.c:224-430, match 2, mismatch -1, indel -2, so
-EVAL(i+j, d) = i+j-3d) for every task whose flanks fit one W window.
-Generation 0 is the first lcp; each generation picks the candidate
-row with the DEL > MIS > INS priority, prunes cells more than
-belowscore below the best score dback = (belowscore+1)//3+1
+EVAL(i+j, d) = i+j-3d). Generation 0 is the first lcp; each generation
+picks the candidate row with the DEL > MIS > INS priority, prunes cells
+more than belowscore below the best score dback = (belowscore+1)//3+1
 generations back, extends taken cells by their match runs and narrows
-the live window. A live cell on the slot edge or a lane alive at the
-generation cap comes back unsafe.
+the live window.
 
-PK: (N, 6*W/32+2) int32 holding uint32 bit patterns — the six planes
-of the U and V windows, then ulen, vlen. Result: (4, N) int32 — best
-ivalue, jvalue, score, unsafe.
+Input: the uploaded pool (``ops/pool.py``) and per lane ustart, ulen,
+vstart, vlen, rev; window tiers ((W, GENS), ...). A lane runs in a
+window of its flanks clipped at the tier's W, with the true flank
+lengths in every test, for at most GENS generations. It comes back
+unsafe when its front reaches the slot edge (``EDGE``), when a taken
+cell's match run reaches the clip of a flank that goes on (``CLIP``:
+the run might go on), or when it is alive at the cap (``CAP``); the last
+two run again at the next tier. The TPU design sent lanes longer than
+its widest window, and lanes whose end diagonal lies outside the band,
+to the host instead: here a flank is clipped, and a cell leaves the
+band only through an edge slot. Result: (5, N) int32 (best ivalue,
+jvalue, score, unsafe, the last tier run) and the candidate
+slot-generations of the run.
 
-On the card (csrc/xdrop_full.cu) a task is one warp with its slots
-spread over the threads, as K1. Slot s holds diagonal kk = s - D with
-j = i - kk, so the shared match words are read on diagonal -kk (the
-TPU kernel flips the slot axis of the greedy bitmask instead).
+On the card (csrc/xdrop_full.cu) warps persist and take lanes from a
+queue, longest first; a lane is one warp with its slots spread over the
+threads, as K1. Slot s holds diagonal kk = s - D with j = i - kk, so the
+shared match words are read on diagonal -kk (the TPU kernel flips the
+slot axis of the greedy bitmask instead).
 
 The plain version is lane-vectorised over (N, K) with a Python
 generation loop, for CPU tests and for checking the kernel.
@@ -27,17 +36,21 @@ generation loop, for CPU tests and for checking the kernel.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .. import _kernels
-from .bits import from_i32_bits
-from .pool import pack_codes
+from .bits import NEGINF
 from .greedy_full import gens_cap, match_run, match_words
+from .pool import (check_lanes, kernel_occupancy, launch_pool_kernel,
+                   window_planes)
 
-NEGINF = -(2 ** 30)
+SAFE, EDGE, CAP, CLIP = 0, 1, 2, 3       # why a lane is unsafe
+MAX_TIERS = 4
 
 launches = 0        # kernel launches (the CUDA path only)
+# the work of those launches, for the kernel's bound: candidate
+# slot-generations, and bytes moved (pool planes, lane descriptors and
+# outputs, each once)
+work = {"slot_gens": 0, "bytes": 0}
 
 
 def _run_extend(M: torch.Tensor, row: torch.Tensor, valid: torch.Tensor,
@@ -46,24 +59,20 @@ def _run_extend(M: torch.Tensor, row: torch.Tensor, valid: torch.Tensor,
     return row + match_run(M, row, valid & (row >= 0) & (row < W))
 
 
-def xdrop_full_plain(PK: torch.Tensor, belowscore: int, W: int, D: int,
-                     GENS: int, counts: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch version of K3 (same inputs and (4, N) result).
-    counts, when a dict, gains under "slot_gens" the candidate slots
-    (lb-1 .. ub+1) summed over every lane's generations (the work the
-    data needs, for the kernel's operation bound)."""
-    dev = PK.device
-    N = PK.shape[0]
-    W32 = W // 32
+def _xdrop_window(P: torch.Tensor, ulen: torch.Tensor, vlen: torch.Tensor,
+                  belowscore: int, W: int, D: int, gcap: int,
+                  counts: dict | None):
+    """One tier: the lanes' best (i, j, score) and reason, each (n, 1),
+    in windows P (n, 6, W/32) of flanks of ulen, vlen (n, 1) symbols."""
+    dev = P.device
+    N = P.shape[0]
     K = 2 * D + 1
     dback = (belowscore + 1) // 3 + 1
-    P = from_i32_bits(PK[:, :6 * W32]).reshape(N, 6, W32)
-    ulen = PK[:, 6 * W32:6 * W32 + 1].to(torch.int64)
-    vlen = PK[:, 6 * W32 + 1:6 * W32 + 2].to(torch.int64)
     # slot s reads diagonal -(s - D): flip the greedy slot order
     M = match_words(P, W, D).flip(1)
     sidx = torch.arange(K, device=dev).view(1, K)
     kk = sidx - D
+    uclip, vclip = ulen > W, vlen > W
 
     def first(mask):
         return torch.where(mask, sidx, K).amin(dim=1, keepdim=True)
@@ -75,16 +84,17 @@ def xdrop_full_plain(PK: torch.Tensor, belowscore: int, W: int, D: int,
     row0 = _run_extend(M, torch.where(center, 0, NEGINF).to(torch.int64),
                        center, W)
     init_lcp = row0[:, D:D + 1]
-    finished0 = (init_lcp >= ulen) | (init_lcp >= vlen)
+    clip0 = (uclip | vclip) & (init_lcp >= W)
+    finished0 = (init_lcp >= ulen) | (init_lcp >= vlen) | clip0
     lb = torch.where(finished0, 1, 0)
     ub = torch.where(finished0, -1, 0)
     row = torch.where(center, init_lcp, NEGINF)
     best_i, best_j, best_s = init_lcp, init_lcp, 2 * init_lcp
     btq = best_s.expand(N, dback).clone()
-    unsafe = torch.zeros(N, 1, dtype=torch.bool, device=dev)
+    reason = torch.where(clip0, CLIP, SAFE)
     neg = torch.full((N, 1), NEGINF, dtype=torch.int64, device=dev)
 
-    for d in range(1, gens_cap(GENS) + 1):
+    for d in range(1, gcap + 1):
         active = lb <= ub
         if not bool(active.any()):
             break
@@ -124,6 +134,10 @@ def xdrop_full_plain(PK: torch.Tensor, belowscore: int, W: int, D: int,
         new_row = torch.where(takes, i_ext,
                               torch.where(keeps, row, NEGINF))
         new_row = torch.where(active, new_row, row)
+        # a run that reaches the clip of a flank that goes on
+        clip = (can_ext & ((uclip & (i_ext >= W)) |
+                           (vclip & (i_ext - kk >= W)))) \
+            .any(dim=1, keepdim=True)
 
         j_ext = i_ext - kk
         sc = torch.where(takes & active, i_ext + j_ext - 3 * d, NEGINF)
@@ -151,62 +165,89 @@ def xdrop_full_plain(PK: torch.Tensor, belowscore: int, W: int, D: int,
         hit_u = has_row & (new_row == ulen) & (kk >= 0) & (kk <= new_ub)
         ku = first(hit_u)
         new_ub = torch.where(ku < K, torch.minimum(new_ub, ku - D), new_ub)
-        edge = (has_row & ((sidx == 0) | (sidx == K - 1))) \
-            .any(dim=1, keepdim=True)
-        unsafe = unsafe | (active & edge)
-        stop = done_align | ~any_row | edge
+        edge = any_row & ((first_k == 0) | (last_k == K - 1))
+        reason = torch.where(active & clip, CLIP,
+                             torch.where(active & edge, EDGE, reason))
+        stop = done_align | ~any_row | edge | clip
         lb = torch.where(active, torch.where(stop, 1, new_lb), lb)
         ub = torch.where(active, torch.where(stop, -1, new_ub), ub)
         row = new_row
-    unsafe = unsafe | (lb <= ub)
-    out = torch.cat([best_i, best_j, best_s, unsafe.to(torch.int64)], dim=1)
-    return out.T.contiguous().to(torch.int32)
+    # a lane still alive at the generation cap is unverified too
+    reason = torch.where((reason == SAFE) & (lb <= ub), CAP, reason)
+    return best_i, best_j, best_s, reason
 
 
-def xdrop_full(PK: torch.Tensor, belowscore: int, W: int, D: int = 32,
-               GENS: int = 512) -> torch.Tensor:
-    """K3 on PK's device: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Returns (4, N) int32 on that device."""
-    global launches
-    W32 = W // 32
-    if W % 32 or W <= 0 or not 1 <= D <= 143 or GENS < 0:
-        raise ValueError(f"unsupported shape W={W} D={D} GENS={GENS}")
+def xdrop_full_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
+                     belowscore: int, tiers, D: int,
+                     counts: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K3 (same inputs and (5, N) result); every
+    lane's window at a tier is the tier's W (the kernel rounds a lane's
+    flanks up to 32 within it: the same result). counts, when a dict,
+    gains under "slot_gens" the candidate slots (lb-1 .. ub+1) summed
+    over every lane's generations at every tier it ran (the work the
+    data needs, for the kernel's operation bound)."""
+    N = ustart.numel()
+    out = torch.zeros((5, N), dtype=torch.int64, device=gp.device)
+    todo = torch.arange(N, device=gp.device)
+    for t, (W, GENS) in enumerate(tiers):
+        if todo.numel() == 0:
+            break
+        P = window_planes(gp, ustart[todo], ulen[todo], vstart[todo],
+                          vlen[todo], rev[todo], W)
+        bi, bj, bs, reason = _xdrop_window(
+            P, ulen[todo].view(-1, 1), vlen[todo].view(-1, 1), belowscore,
+            W, D, gens_cap(GENS), counts)
+        out[:, todo] = torch.cat([bi, bj, bs, (reason != SAFE).long(),
+                                  torch.full_like(bi, t)], dim=1).T
+        retry = ((reason == CLIP) | (reason == CAP)).view(-1)
+        todo = todo[retry] if t + 1 < len(tiers) else todo[:0]
+    return out.to(torch.int32)
+
+
+def _check_tiers(tiers, D, belowscore):
+    if not 1 <= len(tiers) <= MAX_TIERS or not 1 <= D <= 143 or \
+            any(W % 32 or W <= 0 or G < 0 for W, G in tiers) or \
+            [W for W, _ in tiers] != sorted(W for W, _ in tiers):
+        raise ValueError(f"unsupported tiers {tiers} D={D}")
     if not 0 <= belowscore <= 188:
         raise ValueError(f"belowscore {belowscore} out of range [0, 188]")
-    if PK.dim() != 2 or PK.shape[1] != 6 * W32 + 2:
-        raise ValueError(f"PK must be (N, {6 * W32 + 2}), got "
-                         f"{tuple(PK.shape)}")
-    if PK.dtype != torch.int32:
-        raise TypeError(f"PK must be int32 bit patterns, got {PK.dtype}")
-    if PK.device.type == "cpu":
-        return xdrop_full_plain(PK, belowscore, W, D, GENS)
-    if PK.device.type != "cuda":
-        raise ValueError(f"unsupported device {PK.device}")
-    if not PK.is_contiguous():
-        raise ValueError("PK must be contiguous")
-    N = PK.shape[0]
-    out = torch.empty((4, N), dtype=torch.int32, device=PK.device)
+
+
+def _conf(tiers, D: int, belowscore: int) -> list:
+    pad = [0] * (MAX_TIERS - len(tiers))
+    return [len(tiers), *(W for W, _ in tiers), *pad,
+            *(gens_cap(G) for _, G in tiers), *pad, D, belowscore]
+
+
+def xdrop_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
+               belowscore: int, tiers, D: int = 32):
+    """K3 on the pool's device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Returns the (5, N) int32 result and
+    the candidate slot-generations, (1,) int64, both on that device."""
+    global launches
+    tiers = tuple((int(W), int(G)) for W, G in tiers)
+    _check_tiers(tiers, D, belowscore)
+    desc = (ustart, ulen, vstart, vlen, rev)
+    check_lanes(gp, desc)
+    if gp.device.type == "cpu":
+        cnt = {}
+        out = xdrop_full_plain(gp, *desc, belowscore, tiers, D, counts=cnt)
+        return out, torch.tensor([cnt.get("slot_gens", 0)])
+    if gp.device.type != "cuda":
+        raise ValueError(f"unsupported device {gp.device}")
+    N = ustart.numel()
+    out = torch.empty((5, N), dtype=torch.int32, device=gp.device)
     if N == 0:
-        return out
-    L = _kernels.lib()
-    err = L.gt_xdrop_full(PK.data_ptr(), out.data_ptr(), N, W, D,
-                          gens_cap(GENS), int(belowscore),
-                          _kernels.stream_ptr(PK.device))
-    _kernels.check(err, "gt_xdrop_full")
+        return out, torch.zeros(1, dtype=torch.int64, device=gp.device)
+    slot_gens = launch_pool_kernel("gt_xdrop_full", gp, desc,
+                                   _conf(tiers, D, belowscore), out)
     launches += 1
-    return out
+    work["slot_gens"] += int(slot_gens)
+    work["bytes"] += gp.numel() * 8 + 33 * N + out.numel() * 4
+    return out, slot_gens
 
 
-def pack_xdrop_tasks(us, vs, W: int) -> np.ndarray:
-    """Host packing: (N, 6*W/32+2) uint32 for xdrop_full — the planes of
-    the 255-padded U and V windows plus ulen/vlen columns."""
-    N = len(us)
-    U = np.full((N, W), 255, np.uint8)
-    V = np.full((N, W), 255, np.uint8)
-    for i, (u, v) in enumerate(zip(us, vs)):
-        U[i, :len(u)] = u
-        V[i, :len(v)] = v
-    ulen = np.fromiter((len(u) for u in us), np.uint32, N)
-    vlen = np.fromiter((len(v) for v in vs), np.uint32, N)
-    return np.concatenate([*pack_codes(U), *pack_codes(V), ulen[:, None],
-                           vlen[:, None]], axis=1).astype(np.uint32)
+def occupancy(tiers, D: int = 32) -> dict:
+    """The kernel's occupancy on the current card for these window tiers:
+    resident warps per SM, registers a thread, SMs."""
+    return kernel_occupancy("gt_xdrop_full_occupancy", _conf(tiers, D, 7))

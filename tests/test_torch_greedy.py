@@ -1,8 +1,10 @@
 """K1 (single-shot greedy extension) in genometools_torch against the
-reference: the plain PyTorch version against the Pallas kernel in
-interpret mode, the pool batch against the reference batch and the
-scalar engine, and the CUDA kernel against the plain version (on a
-card only). All comparisons are exact (integers, tolerance 0).
+reference: the plain PyTorch version, reading its windows from the pool,
+against the Pallas kernel in interpret mode and the scalar engine
+(lanes that move up a slot tier included), the pool batch against the
+reference batch and the scalar engine, and the CUDA kernel against the
+plain version (on a card only). All comparisons are exact (integers,
+tolerance 0).
 
 The reference's JAX modules are imported inside the tests, so the
 CUDA test also runs where JAX is absent:
@@ -14,8 +16,8 @@ import pytest
 import torch
 
 from genometools_torch.ops import greedy_batch as tgb
-from genometools_torch.ops.greedy_full import greedy_full
-from genometools_torch.ops.pool import pack_codes
+from genometools_torch.ops.greedy_full import greedy_full, greedy_full_plain
+from genometools_torch.ops.pool import pack_codes, upload_pool
 
 torch.set_num_threads(1)
 
@@ -70,6 +72,25 @@ def _pool(us, vs):
     return pool, np.cumsum(lu) - lu, lu, lu.sum() + np.cumsum(lv) - lv, lv
 
 
+def _lanes(us, vs, seedl, rev=None, device="cpu"):
+    """The uploaded pool and the (ustart, ulen, vstart, vlen, rev,
+    seedlen) tensors of flank pairs; a reversed lane keeps its flanks
+    reversed in the pool, so the reversed planes read them forward."""
+    n = len(us)
+    rev = np.zeros(n, bool) if rev is None else np.asarray(rev, bool)
+    parts = [u[::-1] if r else u for u, r in zip(us, rev)] + \
+        [v[::-1] if r else v for v, r in zip(vs, rev)]
+    pool = np.concatenate(parts).astype(np.uint8)
+    T = pool.size
+    lu = np.asarray([len(u) for u in us], np.int64)
+    lv = np.asarray([len(v) for v in vs], np.int64)
+    uo, vo = np.cumsum(lu) - lu, lu.sum() + np.cumsum(lv) - lv
+    desc = [np.where(rev, T - uo - lu, uo), lu, np.where(rev, T - vo - lv, vo),
+            lv, rev, np.zeros(n, np.int64) + np.asarray(seedl, np.int64)]
+    return upload_pool(pool, device), tuple(
+        torch.from_numpy(a).to(device) for a in desc)
+
+
 def _pol():
     from genometools_tpu.ops.greedy import PolishingInfo
     return PolishingInfo.new(20.0, HIST)
@@ -84,12 +105,74 @@ def test_plain_matches_pallas_interpret(shape):
     W, D, GENS, hist = shape
     rng = np.random.default_rng(W + D + GENS)
     us, vs = _tasks(rng, 48, W)
-    PK = _pk(us, vs, rng.integers(10, 70, len(us)), W)
+    seedl = rng.integers(10, 70, len(us))
+    PK = _pk(us, vs, seedl, W)
     args = (117, 30, 400, 600, hist)
     ref = greedy_full_pallas(PK, *args, W, D, GENS, interpret=True)
-    got = greedy_full(torch.from_numpy(PK.view(np.int32)), *args, W, D,
-                      GENS).numpy()
-    assert np.array_equal(ref, got)
+    # every other lane read from the reversed planes
+    gp, desc = _lanes(us, vs, seedl, np.arange(len(us)) % 2 == 1)
+    got, _ = greedy_full(gp, *desc, *args, W, (D,), GENS)
+    assert np.array_equal(ref, got.numpy())
+
+
+def _edge_tasks(rng, n, L, gap):
+    """Homologous flanks of up to L symbols, most with an insertion of
+    up to `gap` symbols: the live front must widen past the slot edge of
+    a narrow tier."""
+    us, vs = _tasks(rng, n, L, 0.01, 0.05)
+    for i in range(0, n, 3):
+        g = rng.integers(0, 4, int(rng.integers(gap // 2, gap))
+                         ).astype(np.uint8)
+        p = int(rng.integers(0, vs[i].size + 1))
+        vs[i] = np.concatenate([vs[i][:p], g, vs[i][p:]])[:L]
+    return us, vs
+
+
+# (W, d_tiers, GENS, reference D): a lane that touches the first tier's
+# slot edge goes on at the second and must end as the reference run at
+# the second tier's D ends it
+@pytest.mark.parametrize("case", [(256, (4, 16), 96, 16),
+                                  (256, (2, 8), 48, 8)])
+def test_slot_ladder_matches_pallas_interpret(case):
+    from genometools_tpu.ops.greedy_pallas import greedy_full_pallas
+    W, d_tiers, GENS, D = case
+    rng = np.random.default_rng(W + sum(d_tiers))
+    us, vs = _edge_tasks(rng, 48, W, 24)
+    seedl = rng.integers(10, 70, len(us))
+    args = (117, 30, 400, 600, 64)
+    ref = greedy_full_pallas(_pk(us, vs, seedl, W), *args, W, D, GENS,
+                             interpret=True)
+    gp, desc = _lanes(us, vs, seedl)
+    got, _ = greedy_full(gp, *desc, *args, W, d_tiers, GENS)
+    assert np.array_equal(ref, got.numpy())
+    # some lanes touched the first tier's edge and finished above it
+    first, _ = greedy_full(gp, *desc, *args, W, d_tiers[:1], GENS)
+    assert int(((first[6] == 1) & (got[4] == 1)).sum()) > 0
+
+
+def test_slot_ladder_matches_scalar():
+    """Under weak trims, lanes that touch D = 16's slot edge finish at
+    D = 64 (the main path's tiers), each as the scalar engine finishes
+    it."""
+    from genometools_tpu.ops.greedy import greedy_extend
+    rng = np.random.default_rng(29)
+    us, vs = _edge_tasks(rng, 36, 300, 40)
+    pol = _pol()
+    gp, desc = _lanes(us, vs, 14, rng.integers(0, 2, len(us)))
+    sc = (tgb._mmp128(PMH), MAD, pol.match_score, pol.difference_score, HIST)
+    cnt = {}
+    got = greedy_full_plain(gp, *desc, *sc, 320, (16, 64), 1536,
+                            counts=cnt)
+    lo, _ = greedy_full(gp, *desc, *sc, 320, (16,), 1536)
+    assert int(((lo[6] == 1) & (got[4] == 1)).sum()) > 0
+    assert cnt["slot_gens"] > 0
+    for i in np.flatnonzero(got[4].numpy()):
+        _, best = greedy_extend(
+            us[i], vs[i], max_history=HIST, perc_mat_history=PMH,
+            maxalignedlendifference=MAD, seedlength=14, pol_info=pol)
+        assert tuple(int(x) for x in got[:4, i]) == (
+            best.alignedlen, best.row, best.distance,
+            best.max_mismatches), i
 
 
 def test_pool_batch_matches_reference(monkeypatch):
@@ -121,8 +204,10 @@ def test_batch_matches_scalar_with_host_routing():
     from genometools_tpu.ops.greedy import greedy_extend
 
     class Tiny(tgb.GreedyBatchConfig):
-        FULL_PASSES = ((256, 8, 64),)
-        RESCUE = (256, 16, 64)
+        FULL_W = 256
+        FULL_D = (8,)
+        FULL_GENS = 64
+        RESCUE = (16, 64)
 
     rng = np.random.default_rng(11)
     us, vs = _tasks(rng, 40, 300)
@@ -161,22 +246,32 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the last two shapes leave lanes undone at the slot edge and at the
-# generation cap, so the kernel's pause paths are compared too
+# (W, d_tiers, GENS, lanes): the main path's launch (the ladder 16 -> 64)
+# and its rescue, single D = 64 tiers at two window widths, then shapes
+# that leave lanes undone at the slot edge and at the generation cap, so
+# the kernel's pause paths are compared too; the first case holds some
+# 12 times the card's resident warps, so every persistent warp takes
+# several lanes from the queue
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 64, 1536), (1536, 64, 1536),
-                                   (1536, 128, 6144), (256, 4, 96),
-                                   (256, 16, 8)])
+@pytest.mark.parametrize("shape", [(1536, (16, 64), 1536, 20000),
+                                   (1536, (128,), 6144, 600),
+                                   (256, (64,), 1536, 300),
+                                   (1536, (64,), 1536, 300),
+                                   (256, (4,), 96, 300),
+                                   (256, (16,), 8, 300)])
 def test_cuda_kernel_matches_plain(cuda_device, shape):
-    W, D, GENS = shape
-    rng = np.random.default_rng(W + D)
-    us, vs = _tasks(rng, 300, W)
-    PK = torch.from_numpy(
-        _pk(us, vs, rng.integers(10, 70, len(us)), W).view(np.int32))
+    W, d_tiers, GENS, n = shape
+    rng = np.random.default_rng(W + sum(d_tiers))
+    us, vs = _edge_tasks(rng, n, W, 40)
+    gp, desc = _lanes(us, vs, rng.integers(10, 70, n),
+                      rng.integers(0, 2, n), device=cuda_device)
     args = (117, 30, 400, 600, 64)
-    plain = greedy_full(PK, *args, W, D, GENS)
-    kern = greedy_full(PK.to(cuda_device), *args, W, D, GENS)
+    cnt = {}
+    plain = greedy_full_plain(gp, *desc, *args, W, d_tiers, GENS,
+                              counts=cnt)
+    kern, slot_gens = greedy_full(gp, *desc, *args, W, d_tiers, GENS)
     torch.cuda.synchronize()
-    assert torch.equal(plain, kern.cpu())
-    if D < 64:
+    assert torch.equal(plain, kern)
+    assert int(slot_gens) == cnt["slot_gens"]
+    if d_tiers[-1] < 64:
         assert int(plain[6].sum()) > 0

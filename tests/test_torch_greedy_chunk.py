@@ -100,7 +100,7 @@ class _NoK1(tgb.GreedyBatchConfig):
     """Every lane through the host-driven chunk loop and K2, as the
     reference batch runs on the CPU (its single-shot path needs the
     Pallas kernel)."""
-    FULL_PASSES = ()
+    FULL_W = 0
     RESCUE = None
     GENS = GENS
     RESIDENT = False

@@ -175,7 +175,7 @@ def test_resident_route_matches_reference(recorded, case, form):
     us, vs, kw, ref, _ = recorded[case]
 
     class Cfg(tgb.GreedyBatchConfig):
-        FULL_PASSES = ()
+        FULL_W = 0
         RESCUE = None
         GENS = 48
     tgb.reset_stats()

@@ -1,8 +1,12 @@
 """K3 (single-shot xdrop extension) in genometools_torch against the
-reference: the plain PyTorch version against the Pallas kernel in
-interpret mode, the pool batch against the reference batch and the
-scalar engine, and the CUDA kernel against the plain version (on a
-card only). All comparisons are exact (integers, tolerance 0).
+reference: the plain PyTorch version, reading its windows from the pool,
+against the Pallas kernel in interpret mode, the lax twin and the scalar
+engine (lanes the reference's filters sent to the host included: flanks
+longer than the window, fronts that reach the clip, |ulen - vlen| beyond
+the band, lanes at the slot edge), the pool batch against the reference
+batch and the scalar engine, and the CUDA kernel against the plain
+version (on a card only). All comparisons are exact (integers,
+tolerance 0).
 
 The reference's JAX modules are imported inside the tests, so the
 CUDA test also runs where JAX is absent:
@@ -14,9 +18,13 @@ import pytest
 import torch
 
 from genometools_torch.ops import xdrop_batch as txb
-from genometools_torch.ops.xdrop_full import pack_xdrop_tasks, xdrop_full
+from genometools_torch.ops import xdrop_full as txf
+from genometools_torch.utils.synthetic import mutate
+from test_torch_greedy import _lanes
 
 torch.set_num_threads(1)
+
+WILD = 254
 
 
 def _tasks(rng, n, maxlen, identity=0.85, wildcards=True):
@@ -56,15 +64,109 @@ def _tasks(rng, n, maxlen, identity=0.85, wildcards=True):
                                   (128, 4, 96, 4, 0.9),
                                   (256, 32, 8, 7, 0.95)])
 def test_plain_matches_pallas_interpret(case):
-    from genometools_tpu.ops.xdrop_pallas import xdrop_full_pallas
+    from genometools_tpu.ops.xdrop_pallas import (pack_xdrop_tasks,
+                                                   xdrop_full_pallas)
     W, D, GENS, bs, ident = case
     rng = np.random.default_rng(W + D + GENS)
     us, vs = _tasks(rng, 48, W - 2, ident)
     PK = pack_xdrop_tasks(us, vs, W)
     ref = xdrop_full_pallas(PK, bs, W, D=D, GENS=GENS, interpret=True)
-    got = xdrop_full(torch.from_numpy(PK.view(np.int32)), bs, W, D,
-                     GENS).numpy()
-    assert np.array_equal(ref, got)
+    # every other lane read from the reversed planes
+    gp, desc = _lanes(us, vs, 0, np.arange(len(us)) % 2 == 1)
+    got, _ = txf.xdrop_full(gp, *desc[:5], bs, ((W, GENS),), D)
+    assert np.array_equal(ref, got[:4].numpy())
+    assert (got[4] == 0).all()
+
+
+def _scalar(u, v, bs):
+    from genometools_tpu.ops.xdrop import xdrop_extend
+    b = xdrop_extend(u, v, bs)
+    return b.ivalue, b.jvalue, b.score
+
+
+def _case(name, rng, n=24):
+    """Flank pairs of one behaviour the reference's filters sent to the
+    host (flanks of 200-600 against a first window of 128, D = 16)."""
+    us, vs = [], []
+    for t in range(n):
+        L = int(rng.integers(200, 600))
+        u = rng.integers(0, 4, L).astype(np.uint8)
+        # a run of wildcards, where every front dies (on random DNA the
+        # unit scores keep a front alive)
+        gap = np.full(L, WILD, np.uint8)
+        if name == "dies_before_clip":
+            # homologous for 20-60 symbols
+            v = np.concatenate([mutate(rng, u[:int(rng.integers(20, 60))],
+                                       0.05, 0), gap])
+        elif name == "reaches_clip":
+            v = mutate(rng, u, rng.uniform(0.0, 0.06), 0)
+        elif name == "offband":
+            # the end diagonal lies 40-200 beyond the band
+            v = np.concatenate([mutate(rng, u[:100], 0.05, 0), gap,
+                                gap[:int(rng.integers(40, 200))]])
+        else:
+            # slot_edge: unrelated flanks, on which the front lives on and
+            # spreads over the band
+            v = rng.integers(0, 4, L).astype(np.uint8)
+        us.append(u)
+        vs.append(v)
+    return us, vs
+
+
+@pytest.mark.parametrize("name", ["dies_before_clip", "reaches_clip",
+                                  "offband", "slot_edge"])
+def test_filtered_lanes_match_scalar(name):
+    """Lane by lane: every lane the plain version calls safe equals the
+    scalar engine and, where the lax twin also calls it safe, the twin;
+    each case shows its route (tier 0 in the clipped window, tier 1
+    after the clip, safe beyond the band, unsafe at the slot edge)."""
+    from genometools_tpu.ops.xdrop_batch import _run_device
+    rng = np.random.default_rng(len(name))
+    us, vs = _case(name, rng)
+    gp, desc = _lanes(us, vs, 0, rng.integers(0, 2, len(us)))
+    tiers = ((128, 128), (1024, 1024))
+    out, _ = txf.xdrop_full(gp, *desc[:5], 7, tiers, 16)
+    out = out.numpy()
+    safe = out[3] == 0
+    ti, tj, ts, tun = _run_device(us, vs, 7, 1024, 64)
+    for i in np.flatnonzero(safe):
+        got = tuple(int(x) for x in out[:3, i])
+        assert got == _scalar(us[i], vs[i], 7), (name, i)
+        if not tun[i]:
+            assert got == (ti[i], tj[i], ts[i]), (name, i)
+    longest = np.asarray([max(len(u), len(v)) for u, v in zip(us, vs)])
+    assert (longest > 128).all()
+    if name == "dies_before_clip":
+        assert safe.all() and (out[4] == 0).all()
+    elif name == "reaches_clip":
+        assert safe.all() and (out[4] == 1).any()
+    elif name == "offband":
+        dif = np.abs([len(u) - len(v) for u, v in zip(us, vs)])
+        assert safe.all() and (dif > 16).all()
+    else:
+        assert (~safe).sum() >= len(us) // 2
+
+
+def test_batch_takes_filtered_lanes():
+    """The batch at its own tiers takes lanes longer than 512 and lanes
+    beyond the band, equal to the scalar engine lane by lane."""
+    rng = np.random.default_rng(31)
+    us, vs = [], []
+    for name in ("dies_before_clip", "offband", "slot_edge"):
+        a, b = _case(name, rng, 8)
+        us += a
+        vs += b
+    for L in (700, 900):                   # fronts past the first tier
+        u = rng.integers(0, 4, L).astype(np.uint8)
+        us.append(u)
+        vs.append(mutate(rng, u, 0.02, 0))
+    txb.reset_stats()
+    iv, jv, sv = txb.xdrop_extend_batch_exact(us, vs, 7, device="cpu")
+    for i, (u, v) in enumerate(zip(us, vs)):
+        assert (iv[i], jv[i], sv[i]) == _scalar(u, v, 7), i
+    assert txb.stats["kernel_lanes"] + txb.stats["host_lanes"] == len(us)
+    assert txb.stats["long_lanes"] > 0 and txb.stats["offband_lanes"] > 0
+    assert txb.stats["tier_lanes"][1] > 0
 
 
 def test_pool_batch_matches_reference_and_scalar(monkeypatch):
@@ -92,7 +194,8 @@ def test_pool_batch_matches_reference_and_scalar(monkeypatch):
     for r, g in zip(ref, got):
         assert np.array_equal(r, g)
     assert txb.stats["kernel_lanes"] + txb.stats["host_lanes"] == len(us)
-    assert txb.stats["host_lanes"] >= 2
+    # K3 takes the lane beyond 512 and the one beyond the band
+    assert txb.stats["long_lanes"] >= 1 and txb.stats["offband_lanes"] >= 1
     for i in range(len(us)):
         u, v = pool[uo[i]:uo[i] + lu[i]], pool[vo[i]:vo[i] + lv[i]]
         if rv[i]:
@@ -119,19 +222,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (W, D, GENS): the main path's tiers, then a narrow band and a tiny
-# generation cap that leave lanes unsafe
+# (tiers, D, lanes): the main path's tiers and band over several times
+# the card's resident warps, so every persistent warp takes several lanes
+# from the queue (long, off-band and clipped lanes among them); single
+# tiers of 256 and 512 at the reference's band D = 32; then a narrow band
+# and a tiny generation cap that leave lanes unsafe
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 32, 512), (512, 32, 512),
-                                   (256, 4, 96), (256, 32, 8)])
+@pytest.mark.parametrize("shape", [(txb.TIERS, txb.D_BAND, 20000),
+                                   (((256, 512),), 32, 400),
+                                   (((512, 512),), 32, 400),
+                                   (((256, 96),), 4, 400),
+                                   (((256, 8), (512, 16)), 32, 400)])
 def test_cuda_kernel_matches_plain(cuda_device, shape):
-    W, D, GENS = shape
-    rng = np.random.default_rng(W + D + GENS)
-    us, vs = _tasks(rng, 400, W - 2, 0.85)
-    PK = torch.from_numpy(pack_xdrop_tasks(us, vs, W).view(np.int32))
-    plain = xdrop_full(PK, 7, W, D, GENS)
-    kern = xdrop_full(PK.to(cuda_device), 7, W, D, GENS)
+    tiers, D, n = shape
+    rng = np.random.default_rng(D + n)
+    us, vs = _tasks(rng, n // 2, 250, 0.85)
+    for name in ("dies_before_clip", "reaches_clip", "offband",
+                 "slot_edge"):
+        a, b = _case(name, rng, n // 8)
+        us += a
+        vs += b
+    gp, desc = _lanes(us, vs, 0, rng.integers(0, 2, len(us)),
+                      device=cuda_device)
+    cnt = {}
+    plain = txf.xdrop_full_plain(gp, *desc[:5], 7, tiers, D, counts=cnt)
+    kern, slot_gens = txf.xdrop_full(gp, *desc[:5], 7, tiers, D)
     torch.cuda.synchronize()
-    assert torch.equal(plain, kern.cpu())
-    if (D, GENS) != (32, 512):
+    assert torch.equal(plain, kern)
+    assert int(slot_gens) == cnt["slot_gens"]
+    if tiers == txb.TIERS:
+        # lanes past the first tier's clip and beyond the reference's band
+        taken = plain[3] == 0
+        assert int((taken & (plain[4] > 0)).sum()) > 0
+        assert int((taken & ((desc[1] - desc[3]).abs() > 32)).sum()) > 0
+    else:
         assert int(plain[3].sum()) > 0
