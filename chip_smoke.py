@@ -22,9 +22,15 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      runs both slot tiers (exact: tolerance 0, the outputs are integers,
      the kernels' slot-generation counters included);
   3. `python -m genometools_torch suffixerator -suf -lcp -tis` on the
-     at1MB test genome: .suf/.lcp/.llv must equal gt's goldens;
-  4. the suffix array of a 32 Mbp synthetic genome on the card against
-     the host SA-IS and Kasai engines;
+     at1MB test genome: .suf/.lcp/.llv must equal gt's goldens; then
+     build_esa on the card for all nine tests/golden_esa indexes:
+     .suf/.lcp/.llv/.prj must equal the goldens;
+  4. the suffix array and LCP of a 32 Mbp synthetic genome on the card,
+     by the packed pipeline and by prefix doubling, each against the host
+     SA-IS and Kasai engines; the pipeline's stages (CUDA events: pack,
+     bootstrap sort, refinement rounds with the tied count after each,
+     the SA scatter, the lcp base, the deep pairs and their descent), the
+     device-to-host copies, and each engine's whole time, warm;
   5. the at1MB extension workload through the greedy and xdrop batches:
      the exactness anchors (alignedlen sum 157,827,064 over 530,140
      tasks; score sum 17,549,780 over 65,536 tasks at belowscore 7),
@@ -44,7 +50,20 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      run) and the host engine (skip_chunked): equal alignedlen sums; then
      K2r against its plain version on all 65,536 tasks, lane by lane (a
      main-path lane count: each resident warp takes some 40 lanes from
-     the queue). --gens repeats the two K2 routes at other chunk GENS.
+     the queue). --gens repeats the two K2 routes at other chunk GENS;
+  8. suffixerator_e2e (the library's end-to-end writer) at at1MB and at
+     32 Mbp: every file equals the slow path's (Encseq.save + build_esa +
+     write_esa), at1MB's index files equal the goldens; its wall time
+     beside the host SA-IS + Kasai engines';
+  9. `suffixerator -parts 3` and `-memlimit 4MB` through the port's CLI
+     on at1MB (two processes at once): .suf/.lcp/.llv/.prj equal the
+     goldens;
+  10. wide: 2^30 + 2^20 symbols of random ACGT with about 0.1 % specials,
+     made on the card from a seeded torch.Generator, through
+     build_suffix_array with LCP; held by the device certificate
+     (check_sa_lcp: a permutation, and every adjacent pair's first lcp
+     keys agree and the next is smaller); the stages, the rounds, and
+     the peak device memory, which must stay under 64 GB.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -419,6 +438,201 @@ def k2r_summary(kout: dict, cnt: dict) -> str:
             f"{dict(sorted(cnt['chunks'].items()))}")
 
 
+GOLDEN = ROOT / "tests" / "golden_esa"
+E2E_EXTS = ("esq", "ssp", "des", "sds", "md5", "suf", "lcp", "llv", "prj")
+WIDE_N = 2 ** 30 + 2 ** 20
+WIDE_PEAK_BYTES = 64e9
+
+
+def golden_bytes(db: str, ext: str) -> bytes:
+    gold = GOLDEN / db / f"idx.{ext}"
+    return gold.read_bytes() if gold.exists() else \
+        gzip.open(f"{gold}.gz").read()
+
+
+def same_files(a: str, b: str, exts) -> None:
+    """Fail unless the files a.ext and b.ext are equal (or both absent)."""
+    for ext in exts:
+        pa, pb = Path(f"{a}.{ext}"), Path(f"{b}.{ext}")
+        if pa.exists() != pb.exists() or \
+                (pb.exists() and pa.read_bytes() != pb.read_bytes()):
+            raise SystemExit(f"{pa} differs from {pb}")
+
+
+def log_stages(what: str, trace: dict, smi: str) -> None:
+    from genometools_torch.index.suffix import stage_ms
+    tied = trace["tied"]
+    log(f"{what} pipeline stages, ms (CUDA events): "
+        + ", ".join(f"{s} {ms:.3f}" for s, ms in stage_ms(trace))
+        + f"; refinement rounds {len(tied) - 1}, tied after the bootstrap "
+        f"and after each round {tied}; deep pairs {trace['deep']} [{smi}]")
+
+
+def phase_32m(work: Path, dev, smi: str) -> float:
+    """Phase 4; returns the host SA-IS + Kasai seconds."""
+    from genometools_torch.index import suffix
+    from genometools_torch.index.esa import Encseq, build_esa, host_sa_lcp
+    synthetic_32m(work / "big.fna")
+    big = Encseq.from_files([str(work / "big.fna")])
+    keys = big.suffix_keys()
+    kd = torch.from_numpy(keys).to(dev)
+    suffix.build_suffix_array(kd, device=dev)            # warm-up
+    torch.cuda.synchronize()
+    trace = {}
+    t0 = time.perf_counter()
+    sa, lcp = suffix.build_suffix_array(kd, device=dev, trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if trace["engine"] != "packed":
+        raise SystemExit("32 Mbp keys did not take the packed pipeline")
+    log_stages("32 Mbp", trace, smi)
+    t0 = time.perf_counter()
+    sa, lcp = sa.cpu().numpy(), lcp.cpu().numpy()
+    log(f"device-to-host copies of sa and lcp (int32): "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms; the traced run "
+        f"{wall:.3f}s on the host clock")
+    ms_p, _ = cuda_ms(lambda: suffix.build_suffix_array(kd, device=dev),
+                      reps=3)
+    ms_d, (dsa, dlcp) = cuda_ms(lambda: suffix.doubling_sa_lcp(kd))
+    levels = len(suffix.build_sa_impl(kd.long(), True)[1])
+    log(f"32 Mbp whole engine, warm (CUDA events): packed pipeline "
+        f"{ms_p:.3f} ms (mean of 3), prefix doubling {ms_d:.3f} ms ("
+        f"{levels} rank levels: prefixes of 4 to {4 << (levels - 1)} "
+        f"symbols); "
+        f"{keys.size / ms_p * 1e3:.0f} and {keys.size / ms_d * 1e3:.0f} "
+        f"suffixes/s [{smi}]")
+    t0 = time.perf_counter()
+    esa = build_esa(big, device=dev)
+    dt = time.perf_counter() - t0
+    log(f"build_esa 32Mbp (keys, upload, pipeline, copies): {dt:.3f}s, "
+        f"{keys.size / dt:.0f} suffixes/s [{smi}]")
+    t0 = time.perf_counter()
+    sa_ref, lcp_ref = host_sa_lcp(keys)
+    host = time.perf_counter() - t0
+    log(f"host SA-IS + Kasai: {host:.3f}s")
+    for what, (s, l) in (("packed", (sa, lcp)),
+                         ("doubling", (dsa.cpu().numpy(),
+                                       dlcp.cpu().numpy())),
+                         ("build_esa", (esa.suftab, esa.lcptab))):
+        if not np.array_equal(s, sa_ref):
+            raise SystemExit(f"32 Mbp SA ({what}) differs from host SA-IS")
+        if not np.array_equal(l, lcp_ref):
+            raise SystemExit(f"32 Mbp LCP ({what}) differs from host Kasai")
+    log(f"SA and LCP of the packed pipeline, of prefix doubling and of "
+        f"build_esa equal host SA-IS/Kasai ({keys.size} suffixes)")
+    return host
+
+
+def phase_e2e(work: Path, dev, smi: str, host_32m: float) -> None:
+    """Phase 8: suffixerator_e2e against the slow path and the goldens."""
+    from genometools_torch.index.esa import (Encseq, build_esa, host_sa_lcp,
+                                             write_esa)
+    from genometools_torch.index.fastpipe import suffixerator_e2e
+    for name, fasta in (("at1MB", work / "at1MB.fna"),
+                        ("32Mbp", work / "big.fna")):
+        enc = Encseq.from_files([str(fasta)])
+        if name == "at1MB":
+            t0 = time.perf_counter()
+            host_sa_lcp(enc.suffix_keys())
+            host = time.perf_counter() - t0
+        else:
+            host = host_32m
+        fast = str(work / f"e2e_{name}")
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            suffixerator_e2e([str(fasta)], fast, device=dev)
+            walls.append(time.perf_counter() - t0)
+        slow = str(work / f"slow_{name}")
+        t0 = time.perf_counter()
+        enc.save(slow)
+        write_esa(build_esa(enc, device=dev), slow)
+        slow_s = time.perf_counter() - t0
+        same_files(fast, slow, E2E_EXTS)
+        if name == "at1MB":
+            for ext in ("suf", "lcp", "llv", "prj"):
+                if Path(f"{fast}.{ext}").read_bytes() != \
+                        golden_bytes("at1MB", ext):
+                    raise SystemExit(f"e2e at1MB .{ext} differs from the "
+                                     "golden")
+        log(f"suffixerator_e2e {name} ({enc.total_length + 1} suffixes): "
+            f"{walls[0]:.3f}s, then {walls[1]:.3f}s [{smi}]; host SA-IS + "
+            f"Kasai alone {host:.3f}s; slow path (save, build_esa, "
+            f"write_esa) {slow_s:.3f}s; every file equals the slow path's"
+            + (" and the index files the goldens" if name == "at1MB" else ""))
+
+
+def phase_parts(work: Path, env: dict) -> None:
+    """Phase 9: -parts 3 and -memlimit 4MB on at1MB, two processes at
+    once; both must exit 0 and write the goldens' bytes."""
+    runs = {"parts3": ["-parts", "3"], "memlimit": ["-memlimit", "4MB"]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "genometools_torch", "suffixerator", "-db",
+         "at1MB.fna", "-indexname", name, "-suf", "-lcp", "-tis", *extra],
+        cwd=work, env=env) for name, extra in runs.items()}
+    codes = {name: p.wait() for name, p in procs.items()}
+    log(f"suffixerator {runs}: exit codes {codes}, "
+        f"{time.perf_counter() - t0:.3f}s for both")
+    if any(codes.values()):
+        raise SystemExit("a -parts/-memlimit run failed")
+    for name in runs:
+        for ext in ("suf", "lcp", "llv", "prj"):
+            if (work / f"{name}.{ext}").read_bytes() != \
+                    golden_bytes("at1MB", ext):
+                raise SystemExit(f"{name} .{ext} differs from the golden")
+    log("-parts 3 and -memlimit 4MB: .suf/.lcp/.llv/.prj equal the goldens")
+
+
+def wide_keys(n: int, dev) -> torch.Tensor:
+    """int32 canonical keys of n random ACGT symbols (torch.Generator seed
+    2026 on the card), about 0.1 % of them specials (4 + position), the
+    sentinel last."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2026)
+    keys = torch.randint(0, 4, (n + 1,), generator=g, dtype=torch.int32,
+                         device=dev)
+    sp = torch.randint(0, n, (n // 1000,), generator=g, device=dev)
+    keys[sp] = (4 + sp).to(torch.int32)
+    keys[n] = 4 + n
+    return keys
+
+
+def phase_wide(dev, smi: str) -> None:
+    """Phase 10: the pipeline at WIDE_N symbols, held by the certificate."""
+    from genometools_torch.index import suffix
+    torch.cuda.empty_cache()
+    keys = wide_keys(WIDE_N, dev)
+    nspec = int((keys >= 4).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trace = {}
+    t0 = time.perf_counter()
+    sa, lcp = suffix.build_suffix_array(keys, device=dev, trace=trace)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log_stages("wide", trace, smi)
+    log(f"wide: {WIDE_N + 1} suffixes ({nspec} special keys, sentinel "
+        f"included) in {dt:.3f}s = {(WIDE_N + 1) / dt:.0f} suffixes/s; "
+        f"peak device memory {peak} bytes ({peak / 1e9:.3f} GB, the keys' "
+        f"{keys.numel() * 4 / 1e9:.3f} GB included); max lcp "
+        f"{int(lcp.max())} [{smi}]")
+    if trace["engine"] != "packed":
+        raise SystemExit("the wide keys did not take the packed pipeline")
+    t0 = time.perf_counter()
+    ok = suffix.check_sa_lcp(keys, sa, lcp)
+    log(f"certificate (check_sa_lcp): {'passed' if ok else 'FAILED'} in "
+        f"{time.perf_counter() - t0:.3f}s")
+    if not ok:
+        raise SystemExit("the wide SA/LCP failed the certificate")
+    if peak >= WIDE_PEAK_BYTES:
+        raise SystemExit(f"peak device memory {peak} is over 64 GB")
+    del keys, sa, lcp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -438,7 +652,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import genometools_torch
     from genometools_torch import _kernels, cli
-    from genometools_torch.index.esa import Encseq, build_esa, host_sa_lcp
+    from genometools_torch.index.esa import Encseq, build_esa, write_esa
     from genometools_torch.match.ext_workload import collect_extension_pool
     from genometools_torch.match.seed_extend import (SeedExtendParams,
                                                      seed_extend)
@@ -648,11 +862,8 @@ def main() -> int:
         log(f"suffixerator at1MB: {dt:.3f}s for {n1} suffixes "
             "(process start and CUDA init included)")
         for ext in ("suf", "lcp", "llv"):
-            gold = Path(f"{AT1MB}.{ext}")
-            want = gzip.open(f"{gold}.gz").read() if not gold.exists() \
-                else gold.read_bytes()
             got = (work / f"idx.{ext}").read_bytes()
-            if got != want:
+            if got != golden_bytes("at1MB", ext):
                 raise SystemExit(f"at1MB .{ext} differs from the golden")
             log(f".{ext} equals the golden ({len(got)} bytes)")
         t0 = time.perf_counter()
@@ -661,28 +872,21 @@ def main() -> int:
         dt = time.perf_counter() - t0
         log(f"build_esa at1MB: {dt:.3f}s, {n1 / dt:.0f} suffixes/s "
             f"[{smi}]")
+        dbs = sorted(p.name for p in GOLDEN.iterdir() if p.is_dir())
+        for db in dbs:
+            esa = build_esa(Encseq.load(str(GOLDEN / db / "idx")),
+                            device=dev)
+            write_esa(esa, str(work / f"g_{db}"))
+            for ext in ("suf", "lcp", "llv", "prj"):
+                if (work / f"g_{db}.{ext}").read_bytes() != \
+                        golden_bytes(db, ext):
+                    raise SystemExit(f"build_esa {db} .{ext} differs from "
+                                     "the golden")
+        log(f"build_esa on the card: .suf/.lcp/.llv/.prj equal the goldens "
+            f"for all {len(dbs)} dbs {dbs}")
 
     with Phase("4 suffix array at 32 Mbp"):
-        synthetic_32m(work / "big.fna")
-        big = Encseq.from_files([str(work / "big.fna")])
-        keys = big.suffix_keys()
-        build_esa(big, device=dev)            # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        esa = build_esa(big, device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        log(f"build_esa 32Mbp: {dt:.3f}s, {keys.size / dt:.0f} "
-            f"suffixes/s [{smi}]")
-        t0 = time.perf_counter()
-        sa_ref, lcp_ref = host_sa_lcp(keys)
-        log(f"host SA-IS + Kasai: {time.perf_counter() - t0:.3f}s")
-        if not np.array_equal(esa.suftab, sa_ref):
-            raise SystemExit("32 Mbp SA differs from host SA-IS")
-        if not np.array_equal(esa.lcptab, lcp_ref):
-            raise SystemExit("32 Mbp LCP differs from host Kasai")
-        log(f"SA and LCP equal host SA-IS/Kasai ({keys.size} suffixes)")
-        del big, keys, esa, sa_ref, lcp_ref
+        host_32m = phase_32m(work, dev, smi)
 
     with Phase("5 extension anchors on at1MB"):
         params = SeedExtendParams(extension="greedy")
@@ -911,6 +1115,15 @@ def main() -> int:
         log(f"K2r on the 65,536 tasks: kernel {ms:.3f} ms, plain "
             f"{pms:.1f} ms, {b}, max_abs_err {err}; "
             f"{k2r_summary(kout, cnt)} [{smi}]")
+
+    with Phase("8 suffixerator_e2e at at1MB and 32 Mbp"):
+        phase_e2e(work, dev, smi, host_32m)
+
+    with Phase("9 suffixerator -parts and -memlimit on at1MB"):
+        phase_parts(work, env)
+
+    with Phase("10 wide: 2^30 + 2^20 symbols on the card"):
+        phase_wide(dev, smi)
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

@@ -102,12 +102,12 @@ def _common_refusals(args):
 
 def cmd_suffixerator(args):
     from .core.encseq import READMODES, Encseq
+    from .device import resolve_device
     from .index.esa import build_esa, write_esa
     from .utils.options import Logger, Showtime
     _common_refusals(args)
-    _refuse(args, [("-parts", lambda a: a.parts > 1),
-                   ("-memlimit", lambda a: a.memlimit),
-                   ("-dist", lambda a: a.dist is not None)])
+    _refuse(args, [("-dist", lambda a: a.dist is not None)])
+    resolve_device(args.device)       # raises on the host -parts route too
     st = Showtime(args.showtime)
     log = Logger(getattr(args, "v", False))
     enc = Encseq.from_files(args.db)
@@ -118,8 +118,27 @@ def cmd_suffixerator(args):
     st.phase("reading the input sequences")
     if args.mirrored:
         enc = enc.mirror()
+    rm = READMODES[args.dir]
     indexname = args.indexname or args.db[0]
-    esa = build_esa(enc, READMODES[args.dir], with_lcp=args.lcp,
+    if args.parts > 1 or args.memlimit:
+        # memory-bounded code-range parts on the host (int64 positions;
+        # ref: -parts / -memlimit, src/match/sfx-partssuf.c:172); streams
+        # .suf/.lcp/.llv/.bwt one part at a time for every readmode
+        from .index.parts import stream_esa_parts
+        n1 = enc.total_length + 1
+        if args.memlimit:
+            budget = max(1, _parse_memlimit(args.memlimit) // 16)
+        else:
+            budget = -(-n1 // args.parts)
+        if args.tis:
+            enc.save(indexname)
+        nparts = stream_esa_parts(
+            enc, rm, indexname, budget, suf=args.suf, lcp=args.lcp,
+            bwt=args.bwt, bck=args.bck, prefixlength=args.pl or None)
+        if args.showtime:
+            print(f"# parts={nparts} budget={budget}", file=sys.stderr)
+        return 0
+    esa = build_esa(enc, rm, with_lcp=args.lcp,
                     prefixlength=args.pl or None, with_bck=args.bck,
                     device=args.device)
     st.phase("sorting the suffixes")
@@ -133,6 +152,14 @@ def cmd_suffixerator(args):
               f"{enc.num_sequences} sequences", file=sys.stderr)
         st.overall()
     return 0
+
+
+def _parse_memlimit(s: str) -> int:
+    s = s.strip().upper()
+    for suf, mult in (("GB", 1 << 30), ("MB", 1 << 20), ("KB", 1 << 10)):
+        if s.endswith(suf):
+            return int(float(s[:-2]) * mult)
+    return int(s)
 
 
 def cmd_seed_extend(args):

@@ -2,7 +2,8 @@
 
 Counterpart of ``genometools_tpu/index/esa.py`` (the reference
 suffixerator pipeline, ref: src/match/sfx-run.c:428). The suffix sort
-runs on the port's device engine (``index/suffix.py``); the derived
+runs on the port's device engines (``index/suffix.py``: the packed
+pipeline for canonical keys, prefix doubling otherwise); the derived
 tables and the writers are the reference's host numpy code, copied
 because the reference module imports JAX. Single device only.
 ``Encseq`` is the reference's JAX-free class, re-exported here.

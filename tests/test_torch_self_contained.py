@@ -1,8 +1,8 @@
 """genometools_torch stands alone: no module of the port, and not
 chip_smoke.py, imports the reference package or JAX, and the port's
-suffixerator and seed_extend commands run in a process where both are
-blocked, printing what the reference's CLI prints for the same
-arguments."""
+suffixerator (in memory and with -parts), suffixerator_e2e and
+seed_extend run in a process where both are blocked, printing what the
+reference's CLI prints for the same arguments."""
 
 import ast
 import contextlib
@@ -42,6 +42,8 @@ def test_no_module_imports_the_reference_or_jax():
 COMMANDS = [
     ["suffixerator", "-db", "in.fa", "-indexname", "idx", "-suf", "-lcp",
      "-tis"],
+    ["suffixerator", "-db", "in.fa", "-indexname", "parts", "-suf", "-lcp",
+     "-tis", "-parts", "2"],
     ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
      "-extendgreedy", "-outfmt", "alignment"],
     ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
@@ -67,9 +69,12 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from genometools_torch.cli import main\n"
+        "from genometools_torch.index.fastpipe import suffixerator_e2e\n"
+        "from genometools_torch.utils import progressbar, spacepeak\n"
         f"for argv in {COMMANDS!r}:\n"
         "    main(argv + ['-device', 'cpu'])\n"
         "    print('#--', flush=True)\n"
+        "suffixerator_e2e(['in.fa'], 'e2e', device='cpu')\n"
         f"assert all(sys.modules[m] is None for m in {BLOCKED!r})\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
@@ -77,10 +82,16 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     got = out.stdout.split("#--\n")[:len(COMMANDS)]
+    for name in ("parts", "e2e"):
+        for ext in ("suf", "lcp", "llv", "prj", "esq"):
+            assert (tmp_path / f"{name}.{ext}").read_bytes() == \
+                (tmp_path / f"idx.{ext}").read_bytes(), (name, ext)
     cwd = os.getcwd()
     os.chdir(tmp_path)
     try:
-        for argv, text in zip(COMMANDS[1:], got[1:]):
+        for argv, text in zip(COMMANDS, got):
+            if argv[0] != "seed_extend":
+                continue
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 ref_main(argv + ["--cpu"])
