@@ -24,7 +24,7 @@ Run from the root of a checkout. Phases, each printed with its seconds:
   3. `python -m genometools_torch suffixerator -suf -lcp -tis` on the
      at1MB test genome: .suf/.lcp/.llv must equal gt's goldens; then
      build_esa on the card for all nine tests/golden_esa indexes:
-     .suf/.lcp/.llv/.prj must equal the goldens;
+     .suf/.lcp/.llv/.prj/.bwt/.bck must equal the goldens;
   4. the suffix array and LCP of a 32 Mbp synthetic genome on the card,
      by the packed pipeline and by prefix doubling, each against the host
      SA-IS and Kasai engines; the pipeline's stages (CUDA events: pack,
@@ -63,7 +63,25 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      build_suffix_array with LCP; held by the device certificate
      (check_sa_lcp: a permutation, and every adjacent pair's first lcp
      keys agree and the next is smaller); the stages, the rounds, and
-     the peak device memory, which must stay under 64 GB.
+     the peak device memory, which must stay under 64 GB;
+  11. the seed_extend grid on the phase-3 index: the CLI with -parts 3,
+     greedy then xdrop, whose sorted lines must equal phase 6's; the
+     library's -parts 3 grid through the fused host engine, equal to the
+     wave grid line for line; the six -pick cells, whose concatenation
+     in grid order must equal the -parts 3 lines; launches and lanes
+     read around the CLI runs;
+  12. repfind: the CLI's `-l 14 -f -r -p` on the phase-3 index against
+     the maximal pairs of ESAs built by the host SA-IS and Kasai
+     engines (the text's, and the concatenated texts' for -r/-p); the
+     extensions of every maximal pair, greedy and xdrop, through the
+     batches (K1, K2r, K3) against the reference's per-pair host route
+     (engine="host"): on at1MB through the CLI at -l 14, on phase 7's
+     g4m index through the library at -l 30, with the pairs, the
+     matches, the launches, the lanes by route, the share of xdrop
+     lanes on the host engine (over 1 % on g4m fails) and both routes'
+     seconds; then K3 at the wide tiers (8,192 and 32,768) against its
+     plain version on 128 of g4m's right flanks that K3 leaves unsafe
+     at 2,048.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -237,15 +255,17 @@ def k1_check(k1: Kernel, sc, what, gp, desc) -> int:
     return n
 
 
-def k3_check(k3: Kernel, what, gp, desc) -> int:
-    """K3 at the batch's tiers against its plain version, with the bound
-    from the kernel's slot-generation counter; returns how many lanes it
-    took that the reference routes to the host."""
+def k3_check(k3: Kernel, what, gp, desc, tiers=None,
+             belowscore: int = 7) -> int:
+    """K3 at the batch's tiers (or `tiers`) against its plain version,
+    with the bound from the kernel's slot-generation counter; returns how
+    many lanes it took that the reference routes to the host."""
     from genometools_torch.ops import xdrop_batch as xb
     from genometools_torch.ops import xdrop_full as xf
     desc = desc[:5]
     cnt = {}
-    args = (7, xb.TIERS, xb.D_BAND)
+    tiers = tiers or xb.TIERS
+    args = (belowscore, tiers, xb.D_BAND)
     ms, (kout, sg) = cuda_ms(lambda: xf.xdrop_full(gp, *desc, *args))
     pms, pout = cuda_ms(lambda: xf.xdrop_full_plain(
         gp, *desc, *args, counts=cnt), warm=False)
@@ -256,11 +276,11 @@ def k3_check(k3: Kernel, what, gp, desc) -> int:
     long = int((taken & (torch.maximum(desc[1], desc[3]) > xb.REF_MAXLEN))
                .sum())
     off = int((taken & ((desc[1] - desc[3]).abs() > xb.REF_BAND)).sum())
-    tiers = torch.bincount(kout[4][taken].long(),
-                           minlength=len(xb.TIERS)).tolist()
-    log(f"K3 {what} tiers {xb.TIERS} D={xb.D_BAND} N={desc[0].numel()}: "
+    by_tier = torch.bincount(kout[4][taken].long(),
+                             minlength=len(tiers)).tolist()
+    log(f"K3 {what} tiers {tiers} D={xb.D_BAND} N={desc[0].numel()}: "
         f"kernel {ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err {err}; "
-        f"taken by tier {tiers} (longer than {xb.REF_MAXLEN}: {long}, "
+        f"taken by tier {by_tier} (longer than {xb.REF_MAXLEN}: {long}, "
         f"|ulen - vlen| > {xb.REF_BAND}: {off}), unsafe "
         f"{int((~taken).sum())}")
     return long + off
@@ -422,13 +442,53 @@ def lane_bytes(gp, desc, out) -> int:
 
 def xdrop_lanes(xb) -> str:
     st = xb.stats
-    tiers = dict(zip((W for W, _ in xb.TIERS), st["tier_lanes"]))
+    tiers = dict(zip((W for W, _ in xb.TIERS + xb.WIDE_TIERS),
+                     st["tier_lanes"]))
     return (f"K3 {st['kernel_lanes']}, by window tier {tiers} "
             f"(longer than {xb.REF_MAXLEN}: {st['long_lanes']}, |ulen - vlen|"
-            f" > {xb.REF_BAND}: {st['offband_lanes']}), host "
-            f"{st['host_lanes']}; "
-            f"lanes the reference's filters route to the host: "
+            f" > {xb.REF_BAND}: {st['offband_lanes']}; run again at the wide "
+            f"tiers: {st['wide_lanes']}), host {st['host_lanes']} "
+            f"({st['host_symbols']} flank symbols copied for them); lanes "
+            f"the reference's filters route to the host: "
             f"{st['filtered_lanes']}")
+
+
+def host_share(xb) -> float:
+    """The share of the xdrop lanes that went to the host engine."""
+    st = xb.stats
+    n = st["kernel_lanes"] + st["host_lanes"]
+    return st["host_lanes"] / n if n else 0.0
+
+
+def wide_lanes(enc, esa, minlen: int, belowscore: int, dev, n: int = 128):
+    """The pool and the descriptors of up to n right flanks of g4m's
+    maximal pairs that K3 leaves unsafe at the last of TIERS: the lanes
+    the batch runs again at WIDE_TIERS."""
+    from genometools_torch.match import repfind as rf
+    from genometools_torch.ops import xdrop_batch as xb
+    from genometools_torch.ops import xdrop_full as xf
+    from genometools_torch.ops.pool import upload_pool
+    mp = rf.enumerate_maxpairs(esa, minlen)
+    a = np.minimum(mp.pos1, mp.pos2).astype(np.int64)
+    b = np.maximum(mp.pos1, mp.pos2).astype(np.int64)
+    ln = mp.length.astype(np.int64)
+    s1, s2 = enc.seqnum_of_pos(a), enc.seqnum_of_pos(b)
+    end1 = enc.seq_startpos(s1) + enc.seq_length(s1)
+    end2 = enc.seq_startpos(s2) + enc.seq_length(s2)
+    same = s1 == s2
+    keep = ~same | (a + ln <= b)
+    a, b, ln, same, end1, end2 = (x[keep] for x in
+                                  (a, b, ln, same, end1, end2))
+    uo, vo = a + ln, b + ln
+    ul = np.where(same, b - uo, end1 - uo)
+    vl = end2 - vo
+    gp = upload_pool(enc.codes, dev)
+    desc = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+            (uo, ul, vo, vl, np.zeros(uo.size, bool))]
+    out, _ = xf.xdrop_full(gp, *desc, belowscore, xb.TIERS, xb.D_BAND)
+    sel = torch.nonzero((out[3] != 0) & (out[4] == len(xb.TIERS) - 1)) \
+        .view(-1)[:n]
+    return gp, [x[sel] for x in desc]
 
 
 def k2r_summary(kout: dict, cnt: dict) -> str:
@@ -633,6 +693,173 @@ def phase_wide(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def route_counts() -> str:
+    """Launches of K1, K2r and K3 and the lanes by route since the last
+    reset_counts()."""
+    from genometools_torch.ops import greedy_batch as gb
+    from genometools_torch.ops import greedy_full as gf
+    from genometools_torch.ops import greedy_resident as gr
+    from genometools_torch.ops import xdrop_batch as xb
+    from genometools_torch.ops import xdrop_full as xf
+    st = gb.stats
+    return (f"launches K1 {gf.launches}, K2r {gr.launches}, K3 "
+            f"{xf.launches}; greedy lanes K1 {st['kernel_lanes']}, K2r "
+            f"{st['resident_lanes']}, K2 {st['chunk_lanes']}, host "
+            f"{st['host_lanes']}; xdrop lanes {xdrop_lanes(xb)}")
+
+
+def reset_counts() -> None:
+    from genometools_torch.ops import greedy_batch as gb
+    from genometools_torch.ops import greedy_chunk as gc
+    from genometools_torch.ops import greedy_full as gf
+    from genometools_torch.ops import greedy_resident as gr
+    from genometools_torch.ops import xdrop_batch as xb
+    from genometools_torch.ops import xdrop_full as xf
+    for mod in (gf, gc, gr, xf):
+        mod.launches = 0
+    gb.reset_stats()
+    xb.reset_stats()
+
+
+def run_cli(cli, argv) -> tuple[list[str], float]:
+    """The port's CLI in this process: (its stdout lines, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_grid(cli, dev, se_lines: dict, smi: str) -> None:
+    """Phase 11: the -parts 3 grid on the phase-3 index (cwd)."""
+    from genometools_torch.index.esa import Encseq
+    from genometools_torch.match.seed_extend import (SeedExtendParams,
+                                                     seed_extend,
+                                                     sequence_ranges)
+    at1 = Encseq.load("idx")
+    ranges = sequence_ranges(at1, 3)
+    log(f"at1MB in 3 parts: sequence ranges {ranges}")
+    for flag, ext in (("-extendgreedy", "greedy"), ("-extendxdrop", "xdrop")):
+        reset_counts()
+        lines, dt = run_cli(cli, ["seed_extend", "-ii", "idx", "-l", "14",
+                                  "-minidentity", "90", flag, "-parts", "3"])
+        log(f"seed_extend {flag} -parts 3: {len(lines)} matches in "
+            f"{dt:.3f}s [{smi}]; {route_counts()}")
+        if sorted(lines) != sorted(se_lines[ext]) or not lines:
+            raise SystemExit(f"-parts 3 {flag} differs from phase 6's lines")
+        p = SeedExtendParams(minidentity=90, userdefinedleastlength=14,
+                             extension=ext, parts=3)
+        t0 = time.perf_counter()
+        fused = [m.line() for m in seed_extend(at1, None, p, engine="fused")]
+        log(f"fused grid: {len(fused)} matches in "
+            f"{time.perf_counter() - t0:.3f}s")
+        if fused != lines:
+            raise SystemExit(f"the fused -parts 3 grid differs from the "
+                             f"wave grid ({ext})")
+        if ext == "greedy":
+            cells = []
+            for a in range(1, len(ranges) + 1):
+                for b in range(a, len(ranges) + 1):
+                    p = SeedExtendParams(minidentity=90,
+                                         userdefinedleastlength=14,
+                                         extension=ext, parts=3,
+                                         pick=(a, b))
+                    cells += [m.line() for m in seed_extend(
+                        at1, None, p, device=dev)]
+            log(f"-pick cells: {len(cells)} matches in all")
+            if cells != lines:
+                raise SystemExit("the -pick cells in grid order differ from "
+                                 "the -parts 3 lines")
+    log("grid: -parts 3 sorted equals phase 6, the fused grid equals the "
+        "wave grid, the -pick cells equal -parts 3")
+
+
+def host_esa_build():
+    """build_esa's stand-in for the oracle: the ESA of a text by the host
+    SA-IS and Kasai engines."""
+    from genometools_torch.index.esa import EnhancedSuffixArray, host_sa_lcp
+
+    def build(enc, readmode=0, **_):
+        sa, lcp = host_sa_lcp(enc.suffix_keys(readmode))
+        return EnhancedSuffixArray(enc, readmode, sa, lcp)
+    return build
+
+
+def phase_repfind(cli, dev, g4m, smi: str, k3: Kernel) -> None:
+    """Phase 12: repfind's pairs and extensions on at1MB and g4m, then K3
+    at the wide tiers against its plain version on g4m's lanes past
+    2,048."""
+    from genometools_torch.index.esa import Encseq, load_esa
+    from genometools_torch.match import repfind as rf
+    from genometools_torch.ops import greedy_resident as gr
+    from genometools_torch.ops import xdrop_batch as xb
+    at1 = Encseq.load("idx")
+    lines, dt = run_cli(cli, ["repfind", "-l", "14", "-ii", "idx", "-f",
+                              "-r", "-p"])
+    log(f"repfind -l 14 -f -r -p: {len(lines)} rows in {dt:.3f}s [{smi}]")
+    build, rf.build_esa = rf.build_esa, host_esa_build()
+    try:
+        t0 = time.perf_counter()
+        hesa = rf.build_esa(at1)
+        want = rf.format_match_lines(rf.repfind_self(at1, 14, esa=hesa), "F")
+        want += rf.format_match_lines(
+            rf.repfind_reverse(at1, 14, esa=hesa), "R")
+        want += rf.format_match_lines(
+            rf.repfind_palindromic(at1, 14, esa=hesa), "P")
+        log(f"oracle (host SA-IS + Kasai ESAs): {len(want)} rows in "
+            f"{time.perf_counter() - t0:.3f}s")
+    finally:
+        rf.build_esa = build
+    if lines != want or not lines:
+        raise SystemExit("repfind -f -r -p differs from the host-ESA oracle")
+    counts = {d: sum(1 for x in lines if x.split()[3] == d) for d in "FRP"}
+    log(f"rows by direction {counts} equal the oracle's")
+
+    for what, enc, esa, minlen in (
+            ("at1MB", at1, load_esa("idx", encseq=at1), 14),
+            ("g4m", g4m, load_esa("g4m", encseq=g4m), 30)):
+        npairs = rf.enumerate_maxpairs(esa, minlen).count
+        for ext in ("greedy", "xdrop"):
+            reset_counts()
+            if what == "at1MB":
+                flag = "-extendgreedy" if ext == "greedy" else "-extendxdrop"
+                got, dt = run_cli(cli, ["repfind", "-l", str(minlen), "-ii",
+                                        "idx", flag])
+            else:
+                t0 = time.perf_counter()
+                got = [m.line() for m in rf.repfind_extend(
+                    enc, minlen, ext, minidentity=80, esa=esa, device=dev)]
+                dt = time.perf_counter() - t0
+            counts, k2r = route_counts(), gr.launches
+            share = host_share(xb)
+            t0 = time.perf_counter()
+            want = [m.line() for m in rf.repfind_extend(
+                enc, minlen, ext, minidentity=80, esa=esa, device=dev,
+                engine="host")]
+            dth = time.perf_counter() - t0
+            log(f"repfind {what} -l {minlen} -extend{ext}: {npairs} "
+                f"maximal pairs, {len(got)} matches; batch route {dt:.3f}s"
+                f"{' (a CLI run)' if what == 'at1MB' else ''}, host route "
+                f"{dth:.3f}s [{smi}]; xdrop lanes on the host engine "
+                f"{100 * share:.3f} %; {counts}")
+            if got != want or not got:
+                raise SystemExit(f"repfind {what} -extend{ext}: the batch "
+                                 "route differs from the host route")
+            if what == "g4m" and ext == "greedy" and k2r == 0:
+                raise SystemExit("g4m's greedy repfind launched K2r no time")
+            if what == "g4m" and ext == "xdrop" and (
+                    share > 0.01 or xb.stats["wide_lanes"] == 0):
+                raise SystemExit("g4m's xdrop repfind: the wide tiers took "
+                                 "no lane, or over 1 % went to the host")
+    from genometools_torch.ops.xdrop import optimal_xdrop_belowscore
+    esa = load_esa("g4m", encseq=g4m)
+    bs = optimal_xdrop_belowscore(20, 97)
+    gp, desc = wide_lanes(g4m, esa, 30, bs, dev)
+    if desc[0].numel() == 0:
+        raise SystemExit("g4m has no xdrop lane past 2,048")
+    k3_check(k3, "g4m lanes past 2,048", gp, desc, xb.WIDE_TIERS, bs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -697,8 +924,9 @@ def main() -> int:
         for d_tiers in (cfg.FULL_D, cfg.RESCUE[:1]):
             log(f"K1 occupancy, windows up to {cfg.FULL_W}, slot tiers "
                 f"{d_tiers}: {gf.occupancy(cfg.FULL_W, d_tiers)}")
-        log(f"K3 occupancy, window tiers {xb.TIERS}: "
-            f"{xf.occupancy(xb.TIERS, xb.D_BAND)}")
+        for tiers in (xb.TIERS, xb.WIDE_TIERS):
+            log(f"K3 occupancy, window tiers {tiers}: "
+                f"{xf.occupancy(tiers, xb.D_BAND)}")
 
     at1 = Encseq.load(str(AT1MB))
     with Phase("2 kernels against plain versions"):
@@ -875,15 +1103,15 @@ def main() -> int:
         dbs = sorted(p.name for p in GOLDEN.iterdir() if p.is_dir())
         for db in dbs:
             esa = build_esa(Encseq.load(str(GOLDEN / db / "idx")),
-                            device=dev)
-            write_esa(esa, str(work / f"g_{db}"))
-            for ext in ("suf", "lcp", "llv", "prj"):
+                            device=dev, with_bck=True)
+            write_esa(esa, str(work / f"g_{db}"), bwt=True, bck=True)
+            for ext in ("suf", "lcp", "llv", "prj", "bwt", "bck"):
                 if (work / f"g_{db}.{ext}").read_bytes() != \
                         golden_bytes(db, ext):
                     raise SystemExit(f"build_esa {db} .{ext} differs from "
                                      "the golden")
-        log(f"build_esa on the card: .suf/.lcp/.llv/.prj equal the goldens "
-            f"for all {len(dbs)} dbs {dbs}")
+        log(f"build_esa on the card: .suf/.lcp/.llv/.prj/.bwt/.bck equal the "
+            f"goldens for all {len(dbs)} dbs {dbs}")
 
     with Phase("4 suffix array at 32 Mbp"):
         host_32m = phase_32m(work, dev, smi)
@@ -945,6 +1173,7 @@ def main() -> int:
             mod.work.update(slot_gens=0, bytes=0)
         gb.reset_stats()
         xb.reset_stats()
+        se_lines = {}
         for flag, ext in (("-extendgreedy", "greedy"),
                           ("-extendxdrop", "xdrop")):
             argv = ["seed_extend", "-ii", "idx", "-l", "14",
@@ -966,6 +1195,7 @@ def main() -> int:
             if lines != ref or not lines:
                 raise SystemExit(f"seed_extend {flag} differs from the "
                                  "fused engine")
+            se_lines[ext] = lines
         log(f"launches: K1 {gf.launches}, K2r {gr.launches}, K3 "
             f"{xf.launches}; greedy lanes: K1 {gb.stats['kernel_lanes']}, "
             f"K2r {gb.stats['resident_lanes']}, host "
@@ -1124,6 +1354,12 @@ def main() -> int:
 
     with Phase("10 wide: 2^30 + 2^20 symbols on the card"):
         phase_wide(dev, smi)
+
+    with Phase("11 seed_extend -parts 3 grid on at1MB"):
+        phase_grid(cli, dev, se_lines, smi)
+
+    with Phase("12 repfind on at1MB and g4m"):
+        phase_repfind(cli, dev, g4m, smi, kernels["K3"])
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

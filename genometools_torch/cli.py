@@ -1,8 +1,8 @@
 """gt-style command line for the port: ``python -m genometools_torch``.
 
 The flags are copies of the reference's parsers
-(``genometools_tpu/cli.py`` ``_add_suffixerator`` and
-``_add_seed_extend``), so both tools accept the same command lines.
+(``genometools_tpu/cli.py`` ``_add_suffixerator``, ``_add_seed_extend``
+and ``_add_repfind``), so the tools accept the same command lines.
 ``-device {cuda,cpu}`` (default cuda) picks where the device work runs;
 asking for cuda without a card fails. Flags the port does not support
 yet raise instead of being ignored.
@@ -88,6 +88,27 @@ def _add_seed_extend(sub):
     return p
 
 
+def _add_repfind(sub):
+    p = sub.add_parser("repfind", help="maximal exact repeats")
+    p.add_argument("-l", type=int, required=True, help="minimum length")
+    p.add_argument("-ii", required=True, help="input index")
+    p.add_argument("-f", action="store_true", help="forward matches (default)")
+    p.add_argument("-r", action="store_true", help="reverse matches")
+    p.add_argument("-p", action="store_true", help="reverse-strand matches")
+    p.add_argument("-extendgreedy", nargs="?", const=100, default=False,
+                   type=int, help="greedy-extend maximal pairs")
+    p.add_argument("-extendxdrop", nargs="?", const=97, default=False,
+                   type=int, help="xdrop-extend maximal pairs")
+    p.add_argument("-minidentity", type=int, default=80)
+    p.add_argument("-maxalilendiff", type=int, default=30)
+    p.add_argument("-percmathistory", type=int, default=55)
+    p.add_argument("-q", nargs="+", default=None,
+                   help="query files: report maximal db matches of "
+                        "query substrings")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
 def _refuse(args, flags) -> None:
     for flag, unsupported in flags:
         if unsupported(args):
@@ -164,13 +185,11 @@ def _parse_memlimit(s: str) -> int:
 
 def cmd_seed_extend(args):
     from .core.encseq import Encseq
+    from .device import resolve_device
     from .match.seed_extend import SeedExtendParams, _seq_codes, seed_extend
     _common_refusals(args)
-    _refuse(args, [("-parts", lambda a: a.parts > 1),
-                   ("-pick", lambda a: a.pick),
-                   ("-maxmat", lambda a: a.maxmat),
-                   ("-estim", lambda a: a.estim),
-                   ("-dist", lambda a: a.dist is not None)])
+    _refuse(args, [("-dist", lambda a: a.dist is not None)])
+    dev = resolve_device(args.device)   # the -estim/-maxmat host routes too
     aenc = Encseq.load(args.ii)
     benc = Encseq.load(args.qii) if args.qii else None
     p = SeedExtendParams(
@@ -186,7 +205,29 @@ def cmd_seed_extend(args):
         logdiagbandwidth=args.diagbandwidth,
         perc_mat_history=args.percmathistory,
         maxalignedlendifference=args.maxalilendiff,
-        spacedseedweight=args.spacedseed)
+        spacedseedweight=args.spacedseed,
+        parts=args.parts,
+        pick=tuple(int(x) for x in args.pick.split(","))
+        if args.pick else None)
+    if args.pick and args.parts <= 1:
+        raise SystemExit('option "-pick" requires option "-parts"')
+    if args.estim:
+        # host code over the host extension route, as in the reference
+        from .match.estim import seed_extend_estim
+        sys.stdout.write(seed_extend_estim(
+            aenc, benc, p, mode=args.estim,
+            delta_filter=args.delta_filter,
+            bias_parameters=args.bias_parameters,
+            aname=args.ii, bname=args.qii or args.ii))
+        return 0
+    if args.maxmat:
+        from .match.seed_extend import maximal_exact_matches
+        k = args.seedlength or min(32, args.l or 20)
+        sys.stdout.write("".join(
+            f"{m.dblen:8d}{m.dbseqnum:10d}{m.dbstart + 1:10d}  "
+            f"{m.direction}{m.queryseqnum:10d}{m.querystart + 1:10d}\n"
+            for m in maximal_exact_matches(aenc, benc, k, args.l)))
+        return 0
     outfmt = args.outfmt or []
     width = 60
     seed_in_algn = "seed_in_algn" in outfmt
@@ -216,7 +257,7 @@ def cmd_seed_extend(args):
     if col_fmts:
         from .match.seedext_display import match_extra_columns
     events = [] if show_failed else None
-    result = seed_extend(aenc, benc, p, events=events, device=args.device)
+    result = seed_extend(aenc, benc, p, events=events, device=dev)
     stream = events if show_failed else [("match", m) for m in result]
     out = []
     for ev in stream:
@@ -253,6 +294,72 @@ def cmd_seed_extend(args):
     return 0
 
 
+def cmd_repfind(args):
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.esa import load_esa
+    from .match.repfind import (repfind_palindromic, repfind_reverse,
+                                repfind_self, write_match_lines)
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.ii)
+    if args.q:
+        # query matching (ref: gt_repfind.c:620 over
+        # gt_querysubstringmatchiterator, esa-mmsearch.c): one exact
+        # match record per db occurrence of each query position's
+        # longest db-matching prefix >= -l
+        from .match.querysearch import query_substring_matches
+        esa = load_esa(args.ii, encseq=enc)
+        q = Encseq.from_files(args.q)
+        out = []
+        for dbpos, qpos, length in query_substring_matches(esa, q, args.l):
+            dbseq = int(enc.seqnum_of_pos(dbpos))
+            dbrel = dbpos - int(enc.seq_startpos(dbseq))
+            qseq = int(q.seqnum_of_pos(qpos))
+            qrel = qpos - int(q.seq_startpos(qseq))
+            out.append(f"{length} {dbseq} {dbrel} F {length} {qseq} "
+                       f"{qrel}\n")
+        sys.stdout.write("".join(out))
+        return 0
+    if args.extendgreedy is not False or args.extendxdrop is not False:
+        from .match.repfind import repfind_extend
+        # the port takes greedy's pruning from -percmathistory and
+        # -maxalilendiff alone
+        _refuse(args, [("-extendgreedy with a sensitivity other than 100",
+                        lambda a: a.extendgreedy not in (False, 100))])
+        esa = load_esa(args.ii, encseq=enc)
+        kind = "greedy" if args.extendgreedy is not False else "xdrop"
+        sys.stdout.write("".join(
+            m.line() + "\n" for m in repfind_extend(
+                enc, args.l, kind, minidentity=args.minidentity,
+                maxalignedlendifference=args.maxalilendiff,
+                perc_mat_history=args.percmathistory, esa=esa,
+                device=dev, sensitivity=args.extendxdrop or 97)))
+        return 0
+    if args.f or not (args.r or args.p):
+        # the native walk fed straight from the index files
+        from .match.maxpairs import enumerate_maxpairs_files
+        from .match.repfind import _format_rows
+        mp = enumerate_maxpairs_files(args.ii, enc, args.l)
+        if mp is not None:
+            write_match_lines(
+                sys.stdout,
+                _format_rows(enc, mp.pos1, mp.pos2, mp.length, "F"), "F")
+        else:
+            esa = load_esa(args.ii, encseq=enc, signed_suftab="i32")
+            write_match_lines(sys.stdout,
+                              repfind_self(enc, args.l, esa=esa), "F")
+    if args.r or args.p:
+        esa = load_esa(args.ii, encseq=enc)
+    if args.r:
+        write_match_lines(sys.stdout, repfind_reverse(
+            enc, args.l, esa=esa, device=dev), "R")
+    if args.p:
+        write_match_lines(sys.stdout, repfind_palindromic(
+            enc, args.l, esa=esa, device=dev), "P")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="genometools_torch",
@@ -260,8 +367,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="tool", required=True)
     _add_suffixerator(sub)
     _add_seed_extend(sub)
+    _add_repfind(sub)
     for name, func in (("suffixerator", cmd_suffixerator),
-                       ("seed_extend", cmd_seed_extend)):
+                       ("seed_extend", cmd_seed_extend),
+                       ("repfind", cmd_repfind)):
         p = sub.choices[name]
         p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                        help="where the device work runs (default cuda; "

@@ -2,9 +2,10 @@
 
 The port's copy of the parts of ``genometools_tpu/core/native.py`` that
 the port calls: the ctypes loader and the host engines of the
-suffixerator and seed_extend paths (SA-IS and Kasai, FASTA intake, the
-.esq two-bit decoder, k-mer lists, the seed-pair join, the greedy and
-xdrop batches and the fused seed_extend engine). The C++ source is the
+suffixerator, seed_extend and repfind paths (SA-IS and Kasai, FASTA
+intake, the .esq two-bit decoder, k-mer lists, the seed-pair join, the
+greedy and xdrop batches, the fused seed_extend engine, the maximal-pairs
+walks and the match-line writer). The C++ source is the
 repository's shared ``native/gtnative.cpp``; it is compiled on demand
 with g++ -O3 into ``genometools_torch/_build/`` and loaded via ctypes.
 Every function returns None when the library cannot be built.
@@ -73,6 +74,19 @@ def get_lib():
         ctypes.c_int64, ctypes.c_int64, i64p, i32p, i32p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int, i64p]
     lib.gt_sais.argtypes = [i32p, ctypes.c_int64, i32p]
+    lib.gt_maxpairs.restype = ctypes.c_int64
+    lib.gt_maxpairs.argtypes = [
+        i32p, i32p, u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint8,
+        pp, pp, pp]
+    lib.gt_maxpairs_stream_new.restype = ctypes.c_void_p
+    lib.gt_maxpairs_stream_new.argtypes = [ctypes.c_int32, ctypes.c_uint8]
+    lib.gt_maxpairs_stream_feed.argtypes = [
+        ctypes.c_void_p, i32p, i32p, u8p, ctypes.c_int64]
+    lib.gt_maxpairs_stream_finish.restype = ctypes.c_int64
+    lib.gt_maxpairs_stream_finish.argtypes = [ctypes.c_void_p, pp, pp, pp]
+    lib.gt_write_match_lines.restype = ctypes.c_int
+    lib.gt_write_match_lines.argtypes = [
+        i64p, ctypes.c_int64, ctypes.c_char, ctypes.c_char_p, ctypes.c_int]
     lib.gt_seed_pair_join.restype = ctypes.c_int64
     lib.gt_seed_pair_join.argtypes = [
         i64p, i32p, i32p, ctypes.c_int64,
@@ -199,6 +213,110 @@ def kasai_lcp_native(keys: np.ndarray, sa: np.ndarray) -> np.ndarray | None:
     lcp = np.zeros(sa.size, np.int32)
     lib.gt_kasai_lcp(_i32ptr(keys), _i32ptr(sa), sa.size, _i32ptr(lcp))
     return lcp
+
+
+def maxpairs_native(sa: np.ndarray, lcp: np.ndarray, cls: np.ndarray,
+                    searchlength: int, sigma: int):
+    """The bottom-up maximal-pairs walk (gt_maxpairs) over (sa, lcp) and
+    the left-context classes: (pos1, pos2, length) int32, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    sa = _as_i32(sa)
+    lcp = _as_i32(lcp)
+    cls = np.ascontiguousarray(cls, dtype=np.uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    p1, p2, pl = i32p(), i32p(), i32p()
+    cnt = lib.gt_maxpairs(
+        _i32ptr(sa), _i32ptr(lcp),
+        cls.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        sa.size, searchlength, sigma,
+        ctypes.byref(p1), ctypes.byref(p2), ctypes.byref(pl))
+    return (_take_array(lib, p1, cnt), _take_array(lib, p2, cnt),
+            _take_array(lib, pl, cnt))
+
+
+def maxpairs_esa_native(codes, suf_u64, lcp_small, llv_u64,
+                        searchlength: int, sigma: int):
+    """Maxpairs off memmapped on-disk ESA tables (gt_maxpairs_esa):
+    u64 suftab + capped lcp bytes + llv exceptions, context classes
+    derived inline. Returns (pos1, pos2, length) int32 or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_maxpairs_esa
+    except AttributeError:
+        return None
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    pp = ctypes.POINTER(i32p)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, ctypes.c_int64, u64p, u8p, u64p,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                       ctypes.c_uint8, pp, pp, pp]
+    codes = np.ascontiguousarray(codes, np.uint8)
+    op1, op2, ol = i32p(), i32p(), i32p()
+    cnt = fn(codes.ctypes.data_as(u8p), codes.size,
+             suf_u64.ctypes.data_as(u64p), lcp_small.ctypes.data_as(u8p),
+             llv_u64.ctypes.data_as(u64p), llv_u64.size // 2,
+             suf_u64.size, int(searchlength), int(sigma),
+             ctypes.byref(op1), ctypes.byref(op2), ctypes.byref(ol))
+    if cnt < 0:
+        return None
+    return (_take_array(lib, op1, cnt), _take_array(lib, op2, cnt),
+            _take_array(lib, ol, cnt))
+
+
+class MaxpairsStream:
+    """Streaming maximal-pairs walker (the Sequentialsuffixarrayreader
+    consumer model, ref: src/match/esa-seqread.h:27): feed (sa, lcp,
+    cls) chunks in rank order, finish() returns the pair arrays. Memory
+    is bounded by the positions inside open intervals of depth >=
+    searchlength. Raises when the native library cannot be built."""
+
+    def __init__(self, searchlength: int, sigma: int):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("the native maximal-pairs walk is "
+                               "unavailable")
+        self._lib = lib
+        self._h = lib.gt_maxpairs_stream_new(searchlength, sigma)
+
+    def feed(self, sa, lcp, cls):
+        sa = _as_i32(sa)
+        lcp = _as_i32(lcp)
+        cls = np.ascontiguousarray(cls, np.uint8)
+        self._lib.gt_maxpairs_stream_feed(
+            self._h, _i32ptr(sa), _i32ptr(lcp),
+            cls.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), sa.size)
+
+    def finish(self):
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        p1, p2, pl = i32p(), i32p(), i32p()
+        cnt = self._lib.gt_maxpairs_stream_finish(
+            self._h, ctypes.byref(p1), ctypes.byref(p2), ctypes.byref(pl))
+        self._h = None
+        return (_take_array(self._lib, p1, cnt),
+                _take_array(self._lib, p2, cnt),
+                _take_array(self._lib, pl, cnt))
+
+
+def write_match_lines_native(rows: np.ndarray, direction: str,
+                             path: str, append: bool) -> bool:
+    """Bulk "len s1 r1 D len s2 r2" line emission in C; False without
+    the lib (the caller formats in Python)."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    rows = np.ascontiguousarray(rows, np.int64)
+    rc = lib.gt_write_match_lines(
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        rows.shape[0], direction.encode()[0:1], path.encode(),
+        1 if append else 0)
+    return rc == 0
 
 
 # sorted a-list pack reuse across join calls (the two strands of one

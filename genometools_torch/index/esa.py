@@ -4,9 +4,10 @@ Counterpart of ``genometools_tpu/index/esa.py`` (the reference
 suffixerator pipeline, ref: src/match/sfx-run.c:428). The suffix sort
 runs on the port's device engines (``index/suffix.py``: the packed
 pipeline for canonical keys, prefix doubling otherwise); the derived
-tables and the writers are the reference's host numpy code, copied
-because the reference module imports JAX. Single device only.
-``Encseq`` is the reference's JAX-free class, re-exported here.
+tables, the writers and the reader (``read_prj``, ``load_esa``) are
+the reference's host numpy code, copied because the reference module
+imports JAX. Single device only. ``Encseq`` is the reference's JAX-free
+class, re-exported here.
 
 On-disk formats (ref: src/match/esa-fileend.h:26-77): .suf — suffix
 positions as native-endian words; .lcp — one byte per entry, 255 marks
@@ -325,3 +326,51 @@ def _write_prj(esa: EnhancedSuffixArray, indexname: str,
         f"mirrored={'1' if enc.mirrored else '0'}",
     ]
     Path(indexname + ".prj").write_text("\n".join(lines) + "\n")
+
+
+def read_prj(indexname: str) -> dict:
+    out = {}
+    for line in Path(indexname + ".prj").read_text().splitlines():
+        if "=" in line:
+            k, v = line.split("=", 1)
+            out[k] = v
+    return out
+
+
+def load_esa(indexname: str, encseq: Encseq | None = None,
+             need_lcp: bool = True,
+             signed_suftab: bool | str = True) -> EnhancedSuffixArray:
+    """An index read from its files (ref: gt_mapsuffixarray,
+    src/match/esa-map.c).
+
+    signed_suftab=False skips the uint64->int64 copy for consumers that
+    only gather with the table; "i32" converts the tables straight to
+    the int32 the native walkers take."""
+    prj = read_prj(indexname)
+    intsize = int(prj.get("integersize", 64))
+    dt = np.uint64 if intsize == 64 else np.uint32
+    n = int(prj["totallength"])
+    if encseq is None:
+        encseq = Encseq.load(indexname)
+    suftab = np.fromfile(indexname + ".suf", dtype=dt)
+    i32 = signed_suftab == "i32" and n + 1 < 2 ** 31
+    if i32:
+        suftab = suftab.astype(np.int32)
+    elif signed_suftab:
+        suftab = suftab.astype(np.int64)
+    if suftab.size != n + 1:
+        raise ValueError(f"{indexname}.suf holds {suftab.size} entries, "
+                         f"the .prj says {n + 1}")
+    lcptab = None
+    if need_lcp and Path(indexname + ".lcp").exists():
+        lcptab = np.fromfile(indexname + ".lcp", dtype=np.uint8).astype(
+            np.int32 if i32 else np.int64)
+        llv_path = Path(indexname + ".llv")
+        if llv_path.exists() and llv_path.stat().st_size:
+            llv = np.fromfile(llv_path, dtype=dt).reshape(-1, 2)
+            lcptab[llv[:, 0].astype(np.int64)] = \
+                np.minimum(llv[:, 1], 2 ** 31 - 1) if i32 else llv[:, 1]
+    return EnhancedSuffixArray(
+        encseq=encseq, readmode=int(prj.get("readmode", FWD)),
+        suftab=suftab, lcptab=lcptab,
+        prefixlength=int(prj.get("prefixlength", 0)))

@@ -21,8 +21,9 @@ measured on the TPU); the lines are the same either way. The
 reference's fused host C++ engine (``_native_segment_recs``) is
 reachable only as
 ``seed_extend(..., engine="fused")``; it is the oracle the tests and
-chip_smoke.py compare against. Not ported yet: the -parts grid and
--maxmat (``maximal_exact_matches``).
+chip_smoke.py compare against. The -parts/-pick grid runs the same
+pipeline per cell with either engine; -maxmat
+(``maximal_exact_matches``) is the reference's host code.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 
 from ..core.chardef import is_special
 from ..core.encseq import Encseq
-from ..core.native import (greedy_batch_native, kmer_list_native,
+from ..core.native import (get_lib, greedy_batch_native, kmer_list_native,
                            seed_pair_join_native, seedext_greedy_run_native,
                            xdrop_batch_native)
 from ..device import resolve_device
@@ -56,7 +57,7 @@ class SeedExtendParams:
     seedlength: int | None = None
     minidentity: int = 80
     sensitivity: int = 97
-    parts: int = 1                     # -parts grid: not ported
+    parts: int = 1                     # -parts grid (with pick)
     pick: tuple[int, int] | None = None
     userdefinedleastlength: int = 20   # -l
     logdiagbandwidth: int = 6
@@ -223,13 +224,97 @@ def build_seed_pairs(alist, blist, selfcomp: bool, maxfreq: int | None,
     """Merge-join on equal codes through the reference's native join;
     returns (aseq, bseq, bpos, apos) sorted by (aseq, bseq, bpos, apos)
     (ref: gt_diagbandseed_merge, diagbandseed.c:2654). Same-sequence
-    pairs need apos + mindist <= bpos <= apos + maxdist."""
+    pairs need apos + mindist <= bpos <= apos + maxdist. Lists the
+    native join's packed words cannot hold (32-mers, positions beyond
+    2^31) take the reference package's numpy join."""
+    if get_lib() is None:
+        raise RuntimeError("the native seed-pair join is unavailable")
     pairs = seed_pair_join_native(alist, blist, selfcomp, maxfreq,
                                   inseqseeds, mindist, maxdist)
-    if pairs is None:
-        raise RuntimeError("the native seed-pair join is unavailable or "
-                           "the input exceeds its 2^31 position budget")
-    return pairs
+    if pairs is not None:
+        return pairs
+    return _numpy_seed_pairs(alist, blist, selfcomp, maxfreq, inseqseeds,
+                             mindist, maxdist)
+
+
+def _numpy_seed_pairs(alist, blist, selfcomp, maxfreq, inseqseeds,
+                      mindist, maxdist):
+    """The reference package's vectorised merge-join (its
+    match/seed_extend.py:178-249), same output and order as the native
+    join."""
+    acode, aseq, apos = alist
+    bcode, bseq, bpos = blist
+    same = blist is alist or (acode is bcode)
+    sortkey = acode if acode.itemsize <= 4 else (
+        acode.astype(np.int32) if int(acode.max(initial=0)) < 2 ** 31
+        else acode)
+    ao = np.argsort(sortkey, kind="stable")
+    acode_s = acode[ao]
+    if same:
+        bo, bcode_s = ao, acode_s
+    else:
+        bkey = bcode if bcode.itemsize <= 4 else (
+            bcode.astype(np.int32) if int(bcode.max(initial=0)) < 2 ** 31
+            else bcode)
+        bo = np.argsort(bkey, kind="stable")
+        bcode_s = bcode[bo]
+
+    # group boundaries per code (arrays are sorted — no np.unique resort)
+    astart = np.flatnonzero(
+        np.concatenate([[True], acode_s[1:] != acode_s[:-1]])) \
+        if acode_s.size else np.zeros(0, np.int64)
+    ua = acode_s[astart]
+    acount = np.diff(np.append(astart, acode_s.size))
+    if same:
+        bstart, ub, bcount = astart, ua, acount
+    else:
+        bstart = np.flatnonzero(
+            np.concatenate([[True], bcode_s[1:] != bcode_s[:-1]])) \
+            if bcode_s.size else np.zeros(0, np.int64)
+        ub = bcode_s[bstart]
+        bcount = np.diff(np.append(bstart, bcode_s.size))
+    # intersect the two sorted unique lists with one searchsorted
+    if same:
+        ia = ib = np.arange(ua.size)
+    else:
+        ii = np.searchsorted(ua, ub)
+        iic = np.minimum(ii, max(ua.size - 1, 0))
+        m = (ii < ua.size) & (ua[iic] == ub) if ua.size else \
+            np.zeros(ub.size, bool)
+        ia, ib = iic[m], np.flatnonzero(m)
+    an, bn = acount[ia], bcount[ib]
+    if maxfreq is not None:
+        keep = np.maximum(an, bn) <= maxfreq
+        ia, ib, an, bn = ia[keep], ib[keep], an[keep], bn[keep]
+    if selfcomp and same:
+        # a singleton code group only yields its identity pair, which
+        # the strand/distance rule always drops — skip them up front
+        # (the bulk of the groups on low-repetition inputs)
+        g = an > 1
+        ia, ib, an, bn = ia[g], ib[g], an[g], bn[g]
+    # cartesian products per common code
+    reps = an * bn
+    total = int(reps.sum())
+    if total == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z
+    grp = np.repeat(np.arange(reps.size), reps)
+    within = np.arange(total) - np.repeat(np.cumsum(reps) - reps, reps)
+    ai = ao[astart[ia][grp] + within // bn[grp]]
+    bi = bo[bstart[ib][grp] + within % bn[grp]]
+    pa_seq, pa_pos = aseq[ai], apos[ai]
+    pb_seq, pb_pos = bseq[bi], bpos[bi]
+    if selfcomp:
+        keep = (pa_seq < pb_seq)
+        if inseqseeds:
+            inrange = (pa_seq == pb_seq) & (pa_pos + mindist <= pb_pos)
+            if maxdist is not None:
+                inrange &= pb_pos <= pa_pos + maxdist
+            keep |= inrange
+        pa_seq, pa_pos = pa_seq[keep], pa_pos[keep]
+        pb_seq, pb_pos = pb_seq[keep], pb_pos[keep]
+    order = np.lexsort((pa_pos, pb_pos, pb_seq, pa_seq))
+    return pa_seq[order], pb_seq[order], pb_pos[order], pa_pos[order]
 
 
 def _score2distance(score: int, alignedlen: int) -> int:
@@ -297,7 +382,9 @@ def _batch_extensions(cands, k, greedy_ctx, belowscore, pool, gp, device):
 
     cands: int64 (n, 7) rows (useq length, vseq length, same_seq,
     dbstart_rel, querystart_rel, a pool base, b pool base), none of them
-    overlapping same-sequence instances. Flanks travel as (offset, len)
+    overlapping same-sequence instances; k: int64 (n,) seed lengths
+    (seed_extend's are all one k, repfind's are its maximal pairs'
+    lengths). Flanks travel as (offset, len)
     rows against the uploaded pool. Greedy flanks are clipped to a
     window (whole chromosomes would otherwise ship megabases per task):
     a lane whose best point stays clear of the clip edge is exact, the
@@ -325,15 +412,16 @@ def _batch_extensions(cands, k, greedy_ctx, belowscore, pool, gp, device):
             return res
         pending = np.arange(lanes.size)
         cap = CAP0
-        slack = mad + history + k
         while pending.size:
             offs = offsets(cap, lanes[pending])
             rev = np.full(pending.size, rev_side)
+            kl = k[lanes[pending]]
+            slack = mad + history + kl
             # skip_chunked=False: flanks longer than K1's windows run
             # through the chunk loop and K2 (the reference's wave path
             # skips that route for a TPU-only cost; see ops/greedy_batch)
             r = greedy_extend_batch_pool(
-                pool, *offs, rev, seedlengths=k, perc_mat_history=pmh,
+                pool, *offs, rev, seedlengths=kl, perc_mat_history=pmh,
                 maxalignedlendifference=mad, pol_info=pol, history=history,
                 device=device, gp=gp, skip_chunked=False)
             al, row = r["alignedlen"].astype(np.int64), r["row"]
@@ -353,7 +441,7 @@ def _batch_extensions(cands, k, greedy_ctx, belowscore, pool, gp, device):
         return ga[t] + ulo, db[t] - ulo, gb[t] + vlo, qs[t] - vlo
 
     def right_offsets(cap, t):
-        dbk, qsk = db[t] + k, qs[t] + k
+        dbk, qsk = db[t] + k[t], qs[t] + k[t]
         uhi = urb[t] if cap is None else np.minimum(urb[t], dbk + cap)
         vhi = vlen[t] if cap is None else np.minimum(vlen[t], qsk + cap)
         return ga[t] + dbk, uhi - dbk, gb[t] + qsk, vhi - qsk
@@ -382,7 +470,7 @@ class _WaveProvider:
     new wave, so the result stream equals sequential extension."""
 
     def __init__(self, segments, order, states, k, greedy_ctx, use_apos,
-                 belowscore, pool, pool_bases, device, wave):
+                 belowscore, strand_pool, pool_bases, device, wave):
         self.WAVE = wave
         self.segments = segments
         self.order = order
@@ -391,8 +479,7 @@ class _WaveProvider:
         self.ctx = greedy_ctx
         self.use_apos = use_apos
         self.belowscore = belowscore
-        self.pool = pool
-        self.gp = upload_pool(pool, device)
+        self.pool, _, self.gp = strand_pool
         self.pool_bases = pool_bases
         self.device = device
         self.cache: dict = {}
@@ -440,7 +527,8 @@ class _WaveProvider:
             cands.append((len(useq), len(vseq), same_seq, db, qs, ga, gb))
         self.cursor = max(self.cursor, idx)
         if cands:
-            exts = _batch_extensions(np.asarray(cands, np.int64), k,
+            exts = _batch_extensions(np.asarray(cands, np.int64),
+                                     np.full(len(cands), k, np.int64),
                                      self.ctx, self.belowscore, self.pool,
                                      self.gp, self.device)
             self.cache.update(zip(wave_keys, map(tuple, exts.tolist())))
@@ -530,9 +618,28 @@ def _diagband_filter(seg, apos, bpos, k, amaxlen, logw, mincov):
                                      covered(key + 1)) >= mincov
 
 
+def _strand_pool(aenc, benc, direction, device, pools):
+    """(pool, b offset, uploaded pool) of a strand, made and uploaded
+    once (pools caches them by direction: the grid keeps both strands'
+    for all its cells, a run without it one at a time): the a-side codes
+    plus the b-side plane (revcomp for P); flank windows are (offset,
+    len) rows against it."""
+    if direction not in pools:
+        if direction == "P" or benc is not aenc:
+            bflat = _revcomp_codes(benc) if direction == "P" \
+                else benc.codes
+            pool = np.concatenate([aenc.codes, bflat])
+            b_off = aenc.codes.size
+        else:
+            pool = aenc.codes
+            b_off = 0
+        pools[direction] = (pool, b_off, upload_pool(pool, device))
+    return pools[direction]
+
+
 def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
                         pa_pos, k, mincov, belowscore, params, selfcomp,
-                        amaxlen, events, device, wave):
+                        amaxlen, events, device, wave, pools):
     matches = []
     n = pa_seq.size
     if n == 0:
@@ -587,19 +694,11 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
     device_ok = (greedy_ctx is not None and 30 <= params.history <= 64) or \
         (params.extension == "xdrop" and params.scores == XdropScores())
     if order and device_ok:
-        # strand pool: the a-side codes plus the b-side plane (revcomp
-        # for P); flank windows are (offset, len) rows against it
-        if direction == "P" or benc is not aenc:
-            bflat = _revcomp_codes(benc) if direction == "P" \
-                else benc.codes
-            pool = np.concatenate([aenc.codes, bflat])
-            b_off = aenc.codes.size
-        else:
-            pool = aenc.codes
-            b_off = 0
+        strand_pool = _strand_pool(aenc, benc, direction, device, pools)
+        b_off = strand_pool[1]
         pool_bases = [(ga, b_off + gb) for ga, gb in seg_bases]
         provider = _WaveProvider(segments, order, states, k, greedy_ctx,
-                                 params.use_apos, belowscore, pool,
+                                 params.use_apos, belowscore, strand_pool,
                                  pool_bases, device, wave)
 
     # ---- pass 3: sequential skip/accept (reference order) ------------
@@ -690,6 +789,28 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
     return matches
 
 
+def _strand_matches(aenc, benc, direction, pairs, k, mincov, belowscore,
+                    params, selfcomp, amaxlen, events, dev, wave, engine,
+                    pools):
+    """One strand's matches from its joined seed pairs, through the
+    wave path or the fused host engine."""
+    pa_seq, pb_seq, pb_pos, pa_pos = pairs
+    if engine == "fused":
+        if not pa_seq.size:
+            return []
+        recs = _native_segment_recs(aenc, benc, direction, pa_seq, pb_seq,
+                                    pb_pos, pa_pos, k, mincov, params,
+                                    selfcomp, amaxlen)
+        if recs is None:
+            raise NotImplementedError(
+                "the fused engine does not take these parameters")
+        return _recs_to_matches(recs, direction, k)
+    return _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq,
+                               pb_pos, pa_pos, k, mincov, belowscore,
+                               params, selfcomp, amaxlen, events, dev,
+                               wave, pools)
+
+
 def seed_extend(aenc: Encseq, benc: Encseq | None = None,
                 params: SeedExtendParams | None = None,
                 events: list | None = None, device="cuda",
@@ -700,10 +821,9 @@ def seed_extend(aenc: Encseq, benc: Encseq | None = None,
     engine="wave" (the path) extends through K1/K3 on `device`;
     engine="fused" runs the reference's fused host C++ engine instead
     (the oracle). events, when a list, receives ('match', m) and
-    ('failed', ...) records in seed processing order."""
+    ('failed', ...) records in seed processing order. params.parts > 1
+    or params.pick runs the part x part grid."""
     params = params or SeedExtendParams()
-    if params.parts > 1 or params.pick:
-        raise NotImplementedError("the -parts grid is not ported yet")
     if engine not in ("wave", "fused"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device) if engine == "wave" else None
@@ -716,30 +836,185 @@ def seed_extend(aenc: Encseq, benc: Encseq | None = None,
         # default -l is the mincoverage (ref: gt_seed_extend.c:1139)
         params.userdefinedleastlength = mincov
     belowscore = params.belowscore()
-    smask = params.spaced_mask(k)
-    alist = enumerate_kmers(aenc, k, revcomp=False, spaced_mask=smask)
     amaxlen = aenc.max_seq_length()
     strands = (["F"] if params.forward else []) + \
         (["P"] if params.reverse else [])
+    run = dict(k=k, mincov=mincov, belowscore=belowscore, params=params,
+               amaxlen=amaxlen, events=events, dev=dev, wave=wave,
+               engine=engine, pools={})
+    if params.parts > 1 or params.pick:
+        return _seed_extend_grid(aenc, benc, selfcomp, strands, run)
+    smask = params.spaced_mask(k)
+    alist = enumerate_kmers(aenc, k, revcomp=False, spaced_mask=smask)
     matches: list[SeedExtendMatch] = []
     for direction in strands:
         blist = alist if (selfcomp and direction == "F") else \
             enumerate_kmers(benc, k, revcomp=(direction == "P"),
                             spaced_mask=smask)
-        pa_seq, pb_seq, pb_pos, pa_pos = build_seed_pairs(
-            alist, blist, selfcomp, params.maxfreq, inseqseeds=True,
-            mindist=k if direction == "F" else 0)
-        if engine == "fused" and pa_seq.size:
-            recs = _native_segment_recs(aenc, benc, direction, pa_seq,
-                                        pb_seq, pb_pos, pa_pos, k, mincov,
-                                        params, selfcomp, amaxlen)
-            if recs is None:
-                raise NotImplementedError(
-                    "the fused engine does not take these parameters")
-            matches.extend(_recs_to_matches(recs, direction, k))
-            continue
-        matches.extend(_process_seed_pairs(
-            aenc, benc, direction, pa_seq, pb_seq, pb_pos, pa_pos, k,
-            mincov, belowscore, params, selfcomp, amaxlen, events, dev,
-            wave))
+        pairs = build_seed_pairs(alist, blist, selfcomp, params.maxfreq,
+                                 inseqseeds=True,
+                                 mindist=k if direction == "F" else 0)
+        matches.extend(_strand_matches(aenc, benc, direction, pairs,
+                                       selfcomp=selfcomp, **run))
+        # each strand uploads its pool once; only the grid's cells share
+        run["pools"].clear()
     return matches
+
+
+def sequence_ranges(enc: Encseq, parts: int) -> list[tuple[int, int]]:
+    """Split sequence numbers into <= parts contiguous ranges balanced
+    by total length (ref: gt_sequence_parts_info_new,
+    src/tools/gt_seed_extend.c:1251-1276). Returns [start, end]
+    inclusive pairs."""
+    n = enc.num_sequences
+    parts = max(1, min(parts, n))
+    lens = np.asarray(enc.seq_length(np.arange(n)), np.int64)
+    cum = np.cumsum(lens)
+    total = int(cum[-1])
+    cuts = [0]
+    for i in range(1, parts):
+        b = int(np.searchsorted(cum, total * i / parts))
+        if b >= n:
+            b = n - 1
+        if b + 1 > cuts[-1]:
+            cuts.append(b + 1)
+    cuts.append(n)
+    return [(cuts[i], cuts[i + 1] - 1) for i in range(len(cuts) - 1)
+            if cuts[i] < cuts[i + 1]]
+
+
+def _filter_list(lst, lo: int, hi: int):
+    code, seq, pos = lst
+    m = (seq >= lo) & (seq <= hi)
+    return code[m], seq[m], pos[m]
+
+
+def _seed_extend_grid(aenc, benc, selfcomp, strands, run):
+    """Part x part grid scheduling (ref: gt_seed_extend.c:1251,
+    diagbandseed.c:6044-6050 loop): A-ranges x B-ranges, B starting at
+    the A range for self-comparison; per cell the full two-strand
+    pipeline runs on the range-restricted k-mer lists. Band geometry
+    stays part-invariant because the diagonal-band division uses the
+    GLOBAL maximum sequence length (ref comment diagbandseed.c:4594-97),
+    so the match set is independent of the part count (the reference's
+    own invariance bar, sorted-output equality). As in the reference
+    package, the grid's k-mers are contiguous: -spacedseed does not
+    reach it."""
+    params, k = run["params"], run["k"]
+    aranges = sequence_ranges(aenc, params.parts)
+    branges = aranges if selfcomp else sequence_ranges(benc, params.parts)
+    if params.pick is not None:
+        pa, pb = params.pick
+        if not (1 <= pa <= len(aranges) and 1 <= pb <= len(branges)):
+            raise ValueError(
+                f"option -pick must not exceed {len(aranges)} "
+                f"(number of parts)")
+    matches: list[SeedExtendMatch] = []
+    alist_full = enumerate_kmers(aenc, k, revcomp=False)
+    blists = {d: enumerate_kmers(benc, k, revcomp=(d == "P"))
+              for d in strands}
+    for ai in range(len(aranges)):
+        bstart = ai if selfcomp else 0
+        for bi in range(bstart, len(branges)):
+            if params.pick is not None and \
+                    (ai + 1, bi + 1) != tuple(params.pick):
+                continue
+            matches.extend(grid_cell_matches(
+                aenc, benc, selfcomp, strands, alist_full, blists,
+                aranges[ai], branges[bi], ai == bi, run))
+    return matches
+
+
+def grid_cell_matches(aenc, benc, selfcomp, strands, alist_full, blists,
+                      arange, brange, diagonal, run):
+    """One part x part grid cell's full two-strand pipeline (seed
+    pairing, diagband filter, extension, match records). Cells are
+    mutually independent (ref: src/match/diagbandseed.c:5982). An
+    off-diagonal self-comparison cell joins its pairs as a
+    self-comparison but extends them as a comparison of two sets, as
+    the reference package does (its match/seed_extend.py:488-494)."""
+    alo, ahi = arange
+    blo, bhi = brange
+    alist = _filter_list(alist_full, alo, ahi)
+    diag_cell = selfcomp and diagonal
+    k, params = run["k"], run["params"]
+    out: list[SeedExtendMatch] = []
+    for direction in strands:
+        blist = _filter_list(blists[direction], blo, bhi)
+        pairs = build_seed_pairs(
+            alist, blist, diag_cell or (selfcomp and not diagonal),
+            params.maxfreq, inseqseeds=diag_cell,
+            mindist=k if direction == "F" else 0)
+        out.extend(_strand_matches(aenc, benc, direction, pairs,
+                                   selfcomp=diag_cell, **run))
+    return out
+
+
+def maximal_exact_matches(aenc: Encseq, benc: Encseq | None,
+                          seedlength: int, minlength: int,
+                          forward: bool = True, reverse: bool = True):
+    """-maxmat mode: merge colinear seeds on one diagonal into maximal
+    exact matches >= minlength (ref: gt_diagbandseed_segment2maxmatches,
+    diagbandseed.c:3953). Returns SeedExtendMatch records with
+    distance 0 / identity 100. Host code, copied from the reference
+    package."""
+    selfcomp = benc is None
+    benc = benc or aenc
+    alist = enumerate_kmers(aenc, seedlength, revcomp=False)
+    out = []
+    strands = (["F"] if forward else []) + (["P"] if reverse else [])
+    for direction in strands:
+        blist = enumerate_kmers(benc, seedlength, revcomp=(direction == "P"))
+        pa_seq, pb_seq, pb_pos, pa_pos = build_seed_pairs(
+            alist, blist, selfcomp, None, inseqseeds=True,
+            mindist=seedlength)
+        # group by (aseq, bseq, diagonal); seeds on one diagonal with
+        # contiguous endpos runs merge into one exact match; diagonals
+        # come as bpos - apos ascending (ref: diagbandseed.c
+        # segment2maxmatches order)
+        diag = pa_pos - pb_pos
+        order = np.lexsort((pa_pos, -diag, pb_seq, pa_seq))
+        pa_seq, pb_seq = pa_seq[order], pb_seq[order]
+        pa_pos, pb_pos, diag = pa_pos[order], pb_pos[order], diag[order]
+        n = pa_seq.size
+        i = 0
+        while i < n:
+            j = i
+            while j + 1 < n and pa_seq[j + 1] == pa_seq[i] and \
+                    pb_seq[j + 1] == pb_seq[i] and \
+                    diag[j + 1] == diag[i] and \
+                    pa_pos[j + 1] <= pa_pos[j] + seedlength:
+                j += 1
+            length = int(pa_pos[j] - pa_pos[i]) + seedlength
+            if length >= minlength:
+                a_start = int(pa_pos[i]) + 1 - seedlength
+                b_start = int(pb_pos[i]) + 1 - seedlength
+                # verify + maximal-extend exact run boundaries
+                useq = _seq_codes(aenc, int(pa_seq[i]), False)
+                vseq = _seq_codes(benc, int(pb_seq[i]),
+                                  direction == "P")
+                while a_start > 0 and b_start > 0 and \
+                        useq[a_start - 1] == vseq[b_start - 1] and \
+                        useq[a_start - 1] < 4:
+                    a_start -= 1
+                    b_start -= 1
+                    length += 1
+                while a_start + length < len(useq) and \
+                        b_start + length < len(vseq) and \
+                        useq[a_start + length] == vseq[b_start + length] \
+                        and useq[a_start + length] < 4:
+                    length += 1
+                out.append(SeedExtendMatch(
+                    length, int(pa_seq[i]), a_start, direction, length,
+                    int(pb_seq[i]), b_start, 2 * length, 0, 100.0))
+            i = j + 1
+    # dedup (several seed runs can extend to one MEM)
+    seen = set()
+    uniq = []
+    for m in out:
+        key = (m.dbseqnum, m.dbstart, m.queryseqnum, m.querystart,
+               m.dblen, m.direction)
+        if key not in seen:
+            seen.add(key)
+            uniq.append(m)
+    return uniq

@@ -5,10 +5,11 @@ Counterpart of ``genometools_tpu/ops/xdrop_batch.py``'s device paths
 ``_xdrop_pk_from_pool``, ``xdrop_extend_batch_pool``): every lane runs in
 one launch of K3 (``ops/xdrop_full.py``), which reads its flanks from
 the uploaded pool clipped at a window tier and moves a lane to the next
-tier when its front reaches the clip or the generation cap. The lanes K3
-reports unsafe re-run on the exact host engine (``_host_exact``), so the
-merged result is bit-equal to the scalar engine
-``ops/xdrop.py::xdrop_extend`` on every lane.
+tier when its front reaches the clip or the generation cap. The lanes
+still unsafe at the last of TIERS run again in a second launch at
+WIDE_TIERS; the lanes K3 reports unsafe there re-run on the exact host
+engine (``_host_exact``), so the merged result is bit-equal to the
+scalar engine ``ops/xdrop.py::xdrop_extend`` on every lane.
 
 The reference sends lanes longer than 512 and lanes whose end diagonal
 lies outside its D = 32 band to the host before its kernel runs,
@@ -32,25 +33,34 @@ from .xdrop_full import xdrop_full
 # the slot groups the live window holds, so a narrow front costs the same
 D_BAND = 64
 # (W, GENS) window tiers, from at1MB's flank lengths (PERF.md): flanks are
-# clipped at W; the first holds 98 % of them, the second every one. A
-# lane still unsafe at the second goes to the host engine
+# clipped at W; the first holds 98 % of them, the second every one
 TIERS = ((512, 512), (2048, 2048))
+# the tiers of the second launch, for the lanes still unsafe at 2,048:
+# repeats of up to 20 kbp (g4m's, repfind's maximal pairs in them) extend
+# that far. A launch reserves its widest window's shared memory for every
+# warp, so these stay out of the first launch, whose occupancy they would
+# cut from 24 warps an SM to 8. A lane still unsafe at the last goes to
+# the host engine
+WIDE_TIERS = ((8192, 8192), (32768, 32768))
 # the reference's routing filters (its xdrop_batch.py:309), counted in
 # stats: lanes longer than its widest window, or with |ulen - vlen|
 # beyond its band
 REF_MAXLEN, REF_BAND = 512, 32
 
 # lanes finished by K3 (kernel or plain version), by the tier they
-# finished at, among them those the reference's filters route to the host
+# finished at (TIERS, then WIDE_TIERS), among them those the reference's filters route to the host
 # (longer than REF_MAXLEN, |ulen - vlen| > REF_BAND); lanes routed to the host
-# engine; all lanes those filters route to the host. Summed over calls;
-# reset with reset_stats()
+# engine and the flank symbols copied for them; lanes run again at
+# WIDE_TIERS; all lanes those filters route to the host. Summed over
+# calls; reset with reset_stats()
 stats: dict = {}
 
 
 def reset_stats() -> None:
-    stats.update(kernel_lanes=0, tier_lanes=[0] * len(TIERS), long_lanes=0,
-                 offband_lanes=0, host_lanes=0, filtered_lanes=0)
+    stats.update(kernel_lanes=0,
+                 tier_lanes=[0] * (len(TIERS) + len(WIDE_TIERS)),
+                 long_lanes=0, offband_lanes=0, host_lanes=0, host_symbols=0,
+                 wide_lanes=0, filtered_lanes=0)
 
 
 reset_stats()
@@ -88,11 +98,23 @@ def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
         np.where(rev, T - v_off - v_len, v_off), v_len, rev)]
     out, _ = xdrop_full(gp, *desc, belowscore, TIERS, D_BAND)
     out = out.cpu().numpy().astype(np.int64)
+    # unsafe at the last tier: clipped or capped there, or at the slot
+    # edge (the result does not tell; a wider window leaves an edge lane
+    # unsafe at the same generation)
+    wide = np.flatnonzero((out[3] != 0) & (out[4] == len(TIERS) - 1))
+    if wide.size:
+        stats["wide_lanes"] += int(wide.size)
+        sel = torch.from_numpy(wide).to(dev)
+        out2, _ = xdrop_full(gp, *(a[sel] for a in desc), belowscore,
+                             WIDE_TIERS, D_BAND)
+        out[:, wide] = out2.cpu().numpy()
+        out[4, wide] += len(TIERS)
     iv, jv, sv = out[0], out[1], out[2]
     ok = out[3] == 0
     stats["kernel_lanes"] += int(ok.sum())
     stats["tier_lanes"] = [a + int(b) for a, b in zip(
-        stats["tier_lanes"], np.bincount(out[4][ok], minlength=len(TIERS)))]
+        stats["tier_lanes"], np.bincount(out[4][ok],
+                                         minlength=len(stats["tier_lanes"])))]
     long = np.maximum(u_len, v_len) > REF_MAXLEN
     offband = np.abs(u_len - v_len) > REF_BAND
     stats["long_lanes"] += int((ok & long).sum())
@@ -101,6 +123,7 @@ def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
     redo = np.flatnonzero(~ok)
     if redo.size:
         stats["host_lanes"] += int(redo.size)
+        stats["host_symbols"] += int((u_len[redo] + v_len[redo]).sum())
         us, vs = pool_flanks(pool, u_off, u_len, v_off, v_len, rev, redo)
         iv[redo], jv[redo], sv[redo] = _host_exact(us, vs, belowscore)
     return iv, jv, sv

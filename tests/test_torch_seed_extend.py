@@ -141,11 +141,19 @@ def test_kmer_helpers_match_reference(case):
         assert np.array_equal(r, g)
 
 
-def test_unported_options_raise():
-    enc = _golden_enc("Duplicate.fna")
-    with pytest.raises(NotImplementedError):
-        tse.seed_extend(enc, None, tse.SeedExtendParams(parts=2),
-                        device="cpu")
+def test_unported_options_raise(monkeypatch, tmp_path):
+    """The CLI still refuses -dist (multi-device, not ported); -parts 2
+    runs and equals the reference."""
+    from genometools_torch.cli import main
+    enc = _golden_enc("Atinsert.fna")
+    enc.save(str(tmp_path / "idx"))
+    with pytest.raises(SystemExit, match="-dist"):
+        main(["seed_extend", "-ii", str(tmp_path / "idx"), "-dist", "-parts",
+              "2", "-device", "cpu"])
+    ref, got, _ = _both(enc, monkeypatch, minidentity=90,
+                        extension="greedy", userdefinedleastlength=14,
+                        parts=2)
+    assert got == ref and ref
 
 
 def test_planted_repeats_take_the_chunk_route(monkeypatch, tmp_path):

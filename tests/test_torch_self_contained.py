@@ -1,8 +1,9 @@
 """genometools_torch stands alone: no module of the port, and not
 chip_smoke.py, imports the reference package or JAX, and the port's
-suffixerator (in memory and with -parts), suffixerator_e2e and
-seed_extend run in a process where both are blocked, printing what the
-reference's CLI prints for the same arguments."""
+suffixerator (in memory and with -parts), suffixerator_e2e, seed_extend
+(with -parts, -maxmat and -estim) and repfind run in a process where
+both are blocked, printing what the reference's CLI prints for the same
+arguments."""
 
 import ast
 import contextlib
@@ -48,6 +49,14 @@ COMMANDS = [
      "-extendgreedy", "-outfmt", "alignment"],
     ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
      "-extendxdrop", "-outfmt", "evalue", "bitscore"],
+    ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
+     "-parts", "2"],
+    ["seed_extend", "-ii", "idx", "-l", "20", "-maxmat"],
+    ["seed_extend", "-ii", "idx", "-estim", "ANI"],
+    ["repfind", "-l", "8", "-ii", "idx", "-f", "-r", "-p"],
+    ["repfind", "-l", "8", "-ii", "idx", "-extendgreedy", "-minidentity",
+     "90"],
+    ["repfind", "-l", "8", "-ii", "idx", "-extendxdrop"],
 ]
 
 
@@ -90,7 +99,7 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
     os.chdir(tmp_path)
     try:
         for argv, text in zip(COMMANDS, got):
-            if argv[0] != "seed_extend":
+            if argv[0] == "suffixerator":
                 continue
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):

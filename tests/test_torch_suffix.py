@@ -57,9 +57,9 @@ def _golden_bytes(db, ext):
 def test_writers_reproduce_goldens(db, tmp_path):
     from genometools_tpu.core.encseq import Encseq
     enc = Encseq.load(str(GOLDEN / db / "idx"))
-    esa = build_esa(enc, device="cpu")
-    write_esa(esa, str(tmp_path / "idx"))
-    for ext in ("suf", "lcp", "llv", "prj"):
+    esa = build_esa(enc, device="cpu", with_bck=True)
+    write_esa(esa, str(tmp_path / "idx"), bwt=True, bck=True)
+    for ext in ("suf", "lcp", "llv", "prj", "bwt", "bck"):
         assert (tmp_path / f"idx.{ext}").read_bytes() == \
             _golden_bytes(db, ext), ext
 
