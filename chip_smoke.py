@@ -81,7 +81,35 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      lanes on the host engine (over 1 % on g4m fails) and both routes'
      seconds; then K3 at the wide tiers (8,192 and 32,768) against its
      plain version on 128 of g4m's right flanks that K3 leaves unsafe
-     at 2,048.
+     at 2,048;
+  13. tallymer (BASELINE config 2) over phase 3's index of at1MB:
+     `tallymer mkindex -mersize 19` (index files and the histogram) and
+     `tallymer search -strand fp` of Atinsert plus 10,000 reads of 100
+     bp sampled from at1MB (numpy seed 7), as CLI calls in process; the
+     ESA route (mkindex over load_esa(need_lcp="small")) must write the
+     direct route's bytes, the mers and counts must equal the brute
+     force, and the search's lines the library's; then at 32 Mbp (phase
+     4's synthetic): mkindex over build_esa's ESA on the card against
+     mkindex_direct and the brute force, and the device window scan
+     (ops/kmer.py) with torch.unique on the card against the brute
+     force;
+  14. readjoiner (BASELINE config 5): error-free 100 bp reads at 20x
+     from g4m_planted_repeats (numpy seed 1, half reverse-complemented,
+     reads with n dropped) through `readjoiner prefilter`, `overlap -l
+     45`, `assembly -l 45` and `cgraph`, then `encseq2spm -l 45` over an
+     in-process `suffixerator -tis` of the kept reads: 10,000 sampled
+     SPMs are suffix-prefix matches of 45 or more, 10,000 sampled
+     contained reads occur in a kept read or its reverse complement,
+     the native SPM join equals the numpy join on the kept reads that
+     start in sequence 0's first 500,000 bp, the two SPM counts agree
+     (overlap's and encseq2spm's); the reads, contained reads, SPMs,
+     contigs, their length, N50 and how many occur verbatim in the
+     genome;
+  15. genomediff and shulengthdist on g4m's two sequences (one ESA of
+     the joined texts sorted on the card, its size printed), uniquesub -min 10 -max 20 and
+     matstat with phase 3's at1MB index and Atinsert: each tool's lines
+     against the same tool over ESAs built by the host SA-IS and Kasai
+     engines, with the seconds of each tool and of its build_esa calls.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -860,6 +888,368 @@ def phase_repfind(cli, dev, g4m, smi: str, k3: Kernel) -> None:
     k3_check(k3, "g4m lanes past 2,048", gp, desc, xb.WIDE_TIERS, bs)
 
 
+def reads_fasta(rows: np.ndarray, path: Path, lut=b"acgtn") -> None:
+    """FASTA of equal-length code rows (0-3, 4 for n), one line each."""
+    rows = np.frombuffer(lut, np.uint8)[rows]
+    n, L = rows.shape
+    ids = [b">r%d\n" % i for i in range(n)]
+    body = np.empty((n, L + 1), np.uint8)
+    body[:, :L] = rows
+    body[:, L] = 10
+    with open(path, "wb") as f:
+        f.write(b"".join(h + r.tobytes() for h, r in zip(ids, body)))
+
+
+def sample_windows(codes: np.ndarray, starts, lens, n: int, L: int, rng):
+    """n windows of L symbols drawn uniformly from the positions whose
+    window lies inside one sequence (codes 0-3, 4 for a wildcard)."""
+    ok = lens >= L
+    cnt = (lens - L + 1)[ok]
+    first = np.repeat(starts[ok], cnt) + (np.arange(cnt.sum()) - np.repeat(
+        np.cumsum(cnt) - cnt, cnt))
+    pos = first[rng.integers(0, first.size, n)]
+    w = codes[pos[:, None] + np.arange(L)]
+    return np.where(w < 4, w, 4).astype(np.uint8)
+
+
+def tyr_files(name: str) -> list[bytes]:
+    return [Path(f"{name}.{ext}").read_bytes()
+            for ext in ("mer", "mct", "tyr.json")]
+
+
+def phase_tallymer(cli, work: Path, dev, smi: str) -> None:
+    """Phase 13: tallymer (BASELINE config 2) over phase 3's index of
+    at1MB (`suffixerator -suf -lcp -tis` on the card; cwd), then at
+    32 Mbp over an ESA that build_esa sorts on the card."""
+    from genometools_torch.index.esa import Encseq, build_esa, load_esa
+    from genometools_torch.match import tallymer as tm
+    from genometools_torch.ops.kmer import kmer_codes, kmer_codes64
+    at1 = Encseq.load("idx")
+    _, dt = run_cli(cli, ["tallymer", "mkindex", "-esa", "idx", "-mersize",
+                          "19", "-minocc", "1", "-indexname", "tyr"])
+    hist, dth = run_cli(cli, ["tallymer", "mkindex", "-esa", "idx",
+                              "-mersize", "19"])
+    t0 = time.perf_counter()
+    esa = load_esa("idx", need_lcp="small", signed_suftab=False)
+    mi = tm.mkindex(esa, 19)
+    mi.save("tyr_esa")
+    dte = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf = tm.mkindex_bruteforce(at1, 19)
+    dtb = time.perf_counter() - t0
+    loaded = tm.MerIndex.load("tyr")
+    if tyr_files("tyr") != tyr_files("tyr_esa"):
+        raise SystemExit("tallymer at1MB: the ESA route's .mer/.mct/.tyr.json "
+                         "differ from the direct route's")
+    if not (np.array_equal(loaded.mer_codes, bf.mer_codes)
+            and np.array_equal(loaded.counts, bf.counts)):
+        raise SystemExit("tallymer at1MB: mers or counts differ from the "
+                         "brute force")
+    dist = {int(a): int(b) for a, b in (x.split() for x in hist)}
+    log(f"tallymer mkindex at1MB k=19: {loaded.num_mers} distinct mers, "
+        f"{dist.get(1, 0)} once, {len(dist)} distinct counts; CLI "
+        f"-indexname {dt:.3f}s, histogram {dth:.3f}s (ESA-free counter), "
+        f"ESA route (load_esa small + mkindex + save) {dte:.3f}s, brute "
+        f"force {dtb:.3f}s [{smi}]; index files equal, mers and counts "
+        f"equal the brute force")
+    # queries: Atinsert, then 10,000 reads of 100 bp from at1MB (seed 7)
+    rng = np.random.default_rng(7)
+    n = at1.num_sequences
+    starts = np.asarray(at1.seq_startpos(np.arange(n)), np.int64)
+    lens = np.asarray(at1.seq_length(np.arange(n)), np.int64)
+    write_fasta(Encseq.load(str(GOLDEN / "Atinsert.fna" / "idx")),
+                work / "q_at.fna")
+    reads_fasta(sample_windows(at1.codes, starts, lens, 10000, 100, rng),
+                work / "q_reads.fna")
+    (work / "queries.fna").write_bytes((work / "q_at.fna").read_bytes()
+                                       + (work / "q_reads.fna").read_bytes())
+    lines, dts = run_cli(cli, ["tallymer", "search", "-tyr", "tyr", "-q",
+                               "queries.fna", "-strand", "fp", "-output",
+                               "qseqnum", "qpos", "counts", "sequence"])
+    t0 = time.perf_counter()
+    res = tm.search(tm.MerIndex.load("tyr"),
+                    Encseq.from_files(["queries.fna"]))
+    dtl = time.perf_counter() - t0
+    acgt = np.frombuffer(b"acgt", np.uint8)
+    shifts = np.arange(36, -1, -2, dtype=np.int64)
+    seqs = acgt[(res.codes[:, None] >> shifts) & 3]
+    want = [f"{a}\t{chr(b)}{c}\t{d}\t{e.tobytes().decode()}" for a, b, c, d, e
+            in zip(res.qseqnum.tolist(), res.strand.tolist(),
+                   res.qpos.tolist(), res.counts.tolist(), seqs)]
+    if lines != want or not lines:
+        raise SystemExit("tallymer search: the CLI's lines differ from the "
+                         "library's")
+    nrev = int((res.strand == ord("-")).sum())
+    log(f"tallymer search -strand fp (Atinsert + 10,000 reads of 100 bp): "
+        f"{len(lines)} lines ({nrev} on the reverse strand) in {dts:.3f}s "
+        f"(CLI in process), library search {dtl:.3f}s [{smi}]; lines equal")
+    big = Encseq.from_files([str(work / "big.fna")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    besa = build_esa(big, device=dev)
+    dtb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesa = tm.mkindex(besa, 19)
+    dtm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mdir = tm.mkindex_direct(big, 19)
+    dtd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf = tm.mkindex_bruteforce(big, 19)
+    dtf = time.perf_counter() - t0
+    if not (np.array_equal(mesa._packed, mdir._packed)
+            and np.array_equal(mesa.counts, mdir.counts)
+            and np.array_equal(mesa.mer_codes, bf.mer_codes)
+            and np.array_equal(mesa.counts, bf.counts)):
+        raise SystemExit("tallymer 32 Mbp: the ESA route, the direct route "
+                         "and the brute force disagree")
+    # the device window scan (ops/kmer.py) against the host codes
+    bc = torch.from_numpy(big.codes).to(dev)
+    ms, (code, valid) = cuda_ms(lambda: kmer_codes64(bc, 19, device=dev))
+    uq, cnt = torch.unique(code[valid], return_counts=True)
+    words, wvalid = kmer_codes(bc, 19, device=dev)
+    if not (np.array_equal(uq.cpu().numpy(), bf.mer_codes)
+            and np.array_equal(cnt.cpu().numpy(), bf.counts)
+            and torch.equal(wvalid, valid)
+            and torch.equal(words[0].long() * 4 ** 15 + words[1], code)):
+        raise SystemExit("kmer_codes on the card differs from the brute "
+                         "force")
+    log(f"tallymer 32 Mbp k=19: {mesa.num_mers} distinct mers; build_esa "
+        f"{dtb:.3f}s, mkindex over it {dtm:.3f}s, mkindex_direct {dtd:.3f}s,"
+        f" brute force {dtf:.3f}s; kmer_codes64 on the card {ms:.3f} ms "
+        f"({code.numel()} windows; CUDA events) [{smi}]; the routes, the "
+        f"brute force and torch.unique over the card's codes agree")
+
+
+def n50(lengths: np.ndarray) -> int:
+    s = np.sort(lengths)[::-1]
+    return int(s[np.searchsorted(np.cumsum(s), s.sum() / 2)]) if s.size else 0
+
+
+def verbatim(contigs: list[bytes], genome: list[bytes]) -> int:
+    """How many contigs (or their reverse complements) occur verbatim in
+    a genome sequence: candidates from the genome's sorted 31-mer codes,
+    then a byte comparison."""
+    from genometools_torch.ops.kmer import kmer_codes_np
+    lut = np.full(256, 254, np.uint8)
+    lut[np.frombuffer(b"acgt", np.uint8)] = np.arange(4)
+    comp = bytes.maketrans(b"acgt", b"tgca")
+    idx = []
+    for s, g in enumerate(genome):
+        code, ok = kmer_codes_np(lut[np.frombuffer(g, np.uint8)], 31)
+        pos = np.flatnonzero(ok)
+        idx.append((code[pos], pos, s))
+    keys = np.concatenate([c for c, _, _ in idx])
+    pos = np.concatenate([p for _, p, _ in idx])
+    seq = np.concatenate([np.full(p.size, s) for _, p, s in idx])
+    o = np.argsort(keys, kind="stable")
+    keys, pos, seq = keys[o], pos[o], seq[o]
+    found = 0
+    for c in contigs:
+        for v in (c, c.translate(comp)[::-1]):
+            k = int(kmer_codes_np(lut[np.frombuffer(v[:31], np.uint8)],
+                                  31)[0][0])
+            a, b = np.searchsorted(keys, [k, k + 1])
+            if any(genome[seq[i]][pos[i]:pos[i] + len(v)] == v
+                   for i in range(a, b)):
+                found += 1
+                break
+    return found
+
+
+def g4m_reads(coverage: int):
+    """(reads as code rows, each read's sequence and start position, the
+    genome's sequences, the generator after them): error-free 100 bp
+    reads at `coverage` from g4m_planted_repeats, start positions uniform
+    in each sequence (numpy seed 1), half reverse-complemented, reads
+    with n dropped."""
+    from genometools_torch.utils.synthetic import planted_repeats
+    genome = planted_repeats()
+    rng = np.random.default_rng(1)
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"acgt", np.uint8)] = np.arange(4)
+    rows, seqno, start = [], [], []
+    for i, g in enumerate(genome):
+        c = lut[np.frombuffer(g, np.uint8)]
+        nr = coverage * c.size // 100
+        st = rng.integers(0, c.size - 100 + 1, nr)
+        w = c[st[:, None] + np.arange(100)]
+        flip = rng.random(nr) < 0.5
+        w[flip] = np.where(w[flip] < 4, 3 - w[flip], 4)[:, ::-1]
+        ok = (w < 4).all(axis=1)
+        rows.append(w[ok])
+        seqno.append(np.full(int(ok.sum()), i))
+        start.append(st[ok])
+    return (np.concatenate(rows), np.concatenate(seqno),
+            np.concatenate(start), genome, rng)
+
+
+def spm_witness(rj, krows: np.ndarray, sel: np.ndarray) -> int:
+    """The native SPM join against the numpy join (the native binding
+    disabled) on the kept reads `sel`, at phase 14's -l 45: every SPM row
+    must agree. Returns the number of SPMs."""
+    from genometools_torch.core import native
+    sub = rj.ReadSet(blob=krows[sel].ravel(), lens=np.full(sel.size, 100))
+    got = rj.find_spms(sub, 45)
+    join = native.spm_find_native
+    native.spm_find_native = lambda *a, **k: None
+    try:
+        want = rj.find_spms(sub, 45)
+    finally:
+        native.spm_find_native = join
+    for f in ("suf_read", "suf_strand", "pref_read", "pref_strand",
+              "length"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise SystemExit(f"readjoiner: the native join's {f} differs "
+                             "from the numpy join's")
+    if not got.length.size:
+        raise SystemExit("readjoiner: no SPM in the witness window")
+    return int(got.length.size)
+
+
+def phase_readjoiner(cli, work: Path, dev, smi: str) -> None:
+    """Phase 14: readjoiner (BASELINE config 5) on error-free 100 bp
+    reads at 20x from g4m_planted_repeats (start positions uniform in
+    each sequence, numpy seed 1; half reverse-complemented; reads with
+    n dropped), then encseq2spm on the kept reads."""
+    from genometools_torch.assembly import readjoiner as rj
+    t0 = time.perf_counter()
+    rows, seqno, start, genome, rng = g4m_reads(20)
+    reads_fasta(rows, work / "reads.fna")
+    log(f"reads: {rows.shape[0]} of 100 bp at 20x over 2 x 2,000,000 bp, "
+        f"{time.perf_counter() - t0:.1f}s to make; host cores "
+        f"{os.cpu_count()} (the native SPM join's threads), "
+        f"{len(os.sched_getaffinity(0))} usable")
+    times = {}
+    for sub, extra in (("prefilter", ["-db", "reads.fna"]),
+                       ("overlap", ["-l", "45"]),
+                       ("assembly", ["-l", "45"]), ("cgraph", [])):
+        _, times[sub] = run_cli(cli, ["readjoiner", sub, "-readset", "rs"]
+                                + extra)
+        log(f"readjoiner {sub}: {times[sub]:.3f}s [{smi}]")
+    kept = np.load("rs.reads.npz")
+    klens = kept["lens"]
+    krows = kept["blob"].reshape(-1, 100)
+    spms = rj.SpmList.read("rs.spm")
+    contained = rj.find_contained(rj.ReadSet(blob=rows.ravel(), lens=np.full(
+        rows.shape[0], 100)), device=dev)
+    if not (klens == 100).all() or not np.array_equal(krows,
+                                                      rows[~contained]):
+        raise SystemExit("readjoiner: the kept reads differ from "
+                         "find_contained's")
+    # 10,000 sampled SPMs: suffix of the first read == prefix of the second
+    pick = rng.choice(spms.length.size, min(10000, spms.length.size),
+                      replace=False)
+    for i in pick:
+        a = krows[spms.suf_read[i]]
+        b = krows[spms.pref_read[i]]
+        a = a if spms.suf_strand[i] else 3 - a[::-1]
+        b = b if spms.pref_strand[i] else 3 - b[::-1]
+        L = int(spms.length[i])
+        if L < 45 or not np.array_equal(a[100 - L:], b[:L]):
+            raise SystemExit(f"readjoiner: SPM {i} is no suffix-prefix "
+                             "match of 45 or more")
+    # 10,000 sampled contained reads occur in a kept read or its rc (all
+    # reads are 100 bp long, so occurring is being equal)
+    have = {r.tobytes() for r in krows} | \
+        {(3 - r[::-1]).tobytes() for r in krows}
+    cidx = np.flatnonzero(contained)
+    pick = rng.choice(cidx, min(10000, cidx.size), replace=False)
+    if not all(rows[i].tobytes() in have for i in pick):
+        raise SystemExit("readjoiner: a contained read occurs in no kept "
+                         "read")
+    # an independent witness that no SPM is missing: the numpy join on
+    # the kept reads that start in sequence 0's first 500,000 bp
+    win = np.flatnonzero(((seqno == 0) & (start < 500000))[~contained])
+    t0 = time.perf_counter()
+    nwit = spm_witness(rj, krows, win)
+    log(f"sampled SPMs and contained reads hold; the native and numpy "
+        f"joins agree on {nwit} SPMs of {win.size} kept reads "
+        f"({time.perf_counter() - t0:.1f}s)")
+    contigs = [ln for ln in Path("rs.contigs.fas").read_bytes().split(b"\n")
+               if ln and not ln.startswith(b">")]
+    clen = np.asarray([len(c) for c in contigs], np.int64)
+    t0 = time.perf_counter()
+    nverb = verbatim(contigs, genome)
+    dtv = time.perf_counter() - t0
+    # encseq2spm over the kept reads' index, after an in-process
+    # suffixerator (its sort on the card)
+    reads_fasta(krows, work / "kept.fna")
+    _, dts = run_cli(cli, ["suffixerator", "-db", "kept.fna", "-indexname",
+                           "kept", "-tis"])
+    log(f"suffixerator -tis on the kept reads: {dts:.3f}s [{smi}]")
+    out, dte = run_cli(cli, ["encseq2spm", "-ii", "kept", "-l", "45",
+                             "-spm", "count"])
+    count = int(out[0].split(":")[1])
+    if count != spms.length.size:
+        raise SystemExit(f"encseq2spm counts {count} SPMs, overlap "
+                         f"{spms.length.size}")
+    log(f"readjoiner: {rows.shape[0]} reads, {int(contained.sum())} "
+        f"contained, {spms.length.size} SPMs (encseq2spm: {count}), "
+        f"{len(contigs)} contigs of {int(clen.sum())} bp, N50 {n50(clen)}, "
+        f"{nverb} of them verbatim in the genome ({dtv:.1f}s to check); "
+        f"seconds: prefilter {times['prefilter']:.3f}, overlap "
+        f"{times['overlap']:.3f}, assembly {times['assembly']:.3f}, cgraph "
+        f"{times['cgraph']:.3f}, suffixerator -tis {dts:.3f}, encseq2spm "
+        f"{dte:.3f} [{smi}]; 10,000 sampled SPMs and contained reads hold, "
+        f"the numpy join agrees on {nwit} SPMs")
+
+
+def phase_querytools(cli, work: Path, smi: str) -> None:
+    """Phase 15: genomediff and shulengthdist on g4m's two sequences,
+    uniquesub and matstat with phase 3's at1MB index and Atinsert; each
+    tool's lines against the same tool over ESAs built by the host SA-IS
+    and Kasai engines."""
+    from genometools_torch.index.esa import (EnhancedSuffixArray, Encseq,
+                                             host_sa_lcp, write_esa)
+    from genometools_torch.match import genomediff as gd
+    from genometools_torch.utils.synthetic import planted_repeats
+    from genometools_torch.utils.synthetic import write_fasta as fasta
+    for i, s in enumerate(planted_repeats()):
+        fasta([s], work / f"g4m_{i}.fna", f"g4m_{i}")
+    write_fasta(Encseq.load(str(GOLDEN / "Atinsert.fna" / "idx")),
+                work / "Atinsert.fna")
+    enc = Encseq.load("idx")
+    sa, lcp = host_sa_lcp(enc.suffix_keys())
+    enc.save("hidx")
+    write_esa(EnhancedSuffixArray(enc, 0, sa, lcp), "hidx")
+    build, spent, sizes = gd.build_esa, [], []
+
+    def timed(b):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = b(*a, **k)
+            spent.append(time.perf_counter() - t0)
+            sizes.append(int(out.suftab.size))
+            return out
+        return run
+    for argv in (["genomediff", "g4m_0.fna", "g4m_1.fna"],
+                 ["shulengthdist", "-ii", "g4m"],
+                 ["uniquesub", "-esa", "{}", "-query", "Atinsert.fna",
+                  "-min", "10", "-max", "20"],
+                 ["matstat", "-esa", "{}", "-query", "Atinsert.fna"]):
+        runs = {}
+        try:
+            for how, b in (("card", build), ("host", host_esa_build())):
+                gd.build_esa = timed(b)
+                spent.clear()
+                sizes.clear()
+                out, dt = run_cli(cli, [a.replace("{}", "idx" if how == "card"
+                                                  else "hidx") for a in argv])
+                runs[how] = (out, dt, sum(spent), list(sizes))
+        finally:
+            gd.build_esa = build
+        (out, dt, sb, nb), (hout, hdt, hb, _) = runs["card"], runs["host"]
+        if out != hout or not out:
+            raise SystemExit(f"{argv[0]}: lines differ over host-built ESAs")
+        log(f"{' '.join(argv).replace('{}', 'idx')}: {len(out)} lines in "
+            f"{dt:.3f}s, of which {len(nb)} build_esa on the card "
+            f"(suftab entries {nb}) {sb:.3f}s "
+            f"[{smi}]; over host SA-IS + Kasai ESAs {hdt:.3f}s (their "
+            f"construction {hb:.3f}s); lines equal"
+            + (f"; {out[1:3]}" if argv[0] != "matstat" else ""))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -1360,6 +1750,15 @@ def main() -> int:
 
     with Phase("12 repfind on at1MB and g4m"):
         phase_repfind(cli, dev, g4m, smi, kernels["K3"])
+
+    with Phase("13 tallymer on at1MB and 32 Mbp"):
+        phase_tallymer(cli, work, dev, smi)
+
+    with Phase("14 readjoiner on g4m reads at 20x"):
+        phase_readjoiner(cli, work, dev, smi)
+
+    with Phase("15 genomediff, shulengthdist, uniquesub, matstat"):
+        phase_querytools(cli, work, smi)
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

@@ -1,17 +1,23 @@
 """gt-style command line for the port: ``python -m genometools_torch``.
 
 The flags are copies of the reference's parsers
-(``genometools_tpu/cli.py`` ``_add_suffixerator``, ``_add_seed_extend``
-and ``_add_repfind``), so the tools accept the same command lines.
-``-device {cuda,cpu}`` (default cuda) picks where the device work runs;
-asking for cuda without a card fails. Flags the port does not support
-yet raise instead of being ignored.
+(``genometools_tpu/cli.py`` ``_add_suffixerator``, ``_add_seed_extend``,
+``_add_repfind``, ``_add_tallymer``, ``_add_readjoiner``,
+``_add_encseq2spm``, ``_add_genomediff``, ``_add_shulengthdist``,
+``_add_uniquesub`` and ``_add_matstat``), so the tools accept the same
+command lines. ``-device {cuda,cpu}`` (default cuda) picks where the
+device work runs; asking for cuda without a card fails, also for the
+tools whose work is host code. Flags the port does not support yet
+raise instead of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+
+import numpy as np
 
 
 def _add_suffixerator(sub):
@@ -360,22 +366,402 @@ def cmd_repfind(args):
     return 0
 
 
+def cmd_tallymer(args):
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.esa import load_esa, read_prj
+    from .match import tallymer
+    _common_refusals(args)
+    resolve_device(args.device)        # host code, as in the reference
+    if args.sub == "mkindex":
+        mi = None
+        try:
+            rm = int(read_prj(args.esa).get("readmode", 0))
+        except OSError:
+            rm = None
+        if rm == 0:
+            # forward readmode, DNA codes: ESA-free native counting
+            # (identical bytes, no .suf/.lcp load)
+            enc_t = Encseq.load(args.esa)
+            if enc_t.alphabet.num_chars == 4:
+                mi = tallymer.mkindex_direct(enc_t, args.mersize,
+                                             minocc=args.minocc,
+                                             maxocc=args.maxocc)
+        if mi is None:
+            esa = load_esa(args.esa, need_lcp="small", signed_suftab=False)
+            mi = tallymer.mkindex(esa, args.mersize, minocc=args.minocc,
+                                  maxocc=args.maxocc)
+        if args.indexname:
+            mi.save(args.indexname)
+        else:
+            dist = tallymer.occurrence_distribution(mi)
+            for count in sorted(dist):
+                print(f"{count} {dist[count]}")
+        return 0
+    mi = tallymer.MerIndex.load(args.tyr)
+    q = Encseq.from_files(args.q)
+    res = tallymer.search(mi, q, forward="f" in args.strand,
+                          reverse="p" in args.strand)
+    show = [f for tok in args.output for f in tok.split(",")]
+    if show in (["qseqnum", "qpos", "counts"], ["qpos", "counts"]) \
+            and res.counts.size > (1 << 14):
+        try:
+            fd = sys.stdout.fileno()
+        except Exception:
+            fd = None
+        if fd is not None:
+            from .core.native import tyr_write_lines_native
+            sys.stdout.flush()
+            if tyr_write_lines_native(res.qseqnum, res.qpos, res.counts,
+                                      res.strand, f"/dev/fd/{fd}",
+                                      show[0] == "qseqnum", True):
+                return 0
+    sys.stdout.write("".join(
+        line + "\n" for line in _tallymer_lines(res, show, mi.mersize)))
+    return 0
+
+
+def _tallymer_lines(res, show, mersize: int) -> list[str]:
+    """`tallymer search` output lines: the fields of `show` per hit,
+    tab-separated as gt writes them."""
+    qs, qp = res.qseqnum.tolist(), res.qpos.tolist()
+    ct, st = res.counts.tolist(), res.strand.tolist()
+    lines = []
+    for i in range(len(ct)):
+        fields = []
+        for f in show:
+            if f == "qseqnum":
+                fields.append(str(qs[i]))
+            elif f == "qpos":
+                fields.append(chr(st[i]) + str(qp[i]))
+            elif f == "counts":
+                fields.append(str(ct[i]))
+            elif f == "sequence":
+                fields.append(_code_to_seq(int(res.codes[i]), mersize))
+        lines.append("\t".join(fields))
+    return lines
+
+
+def _code_to_seq(code: int, k: int) -> str:
+    chars = "acgt"
+    return "".join(chars[(code >> (2 * (k - 1 - i))) & 3] for i in range(k))
+
+
+def _add_tallymer(sub):
+    p = sub.add_parser("tallymer", help="k-mer counting and search")
+    sp = p.add_subparsers(dest="sub", required=True)
+    pm = sp.add_parser("mkindex")
+    pm.add_argument("-esa", required=True, help="enhanced suffix array index")
+    pm.add_argument("-mersize", type=int, default=20)
+    pm.add_argument("-minocc", type=int, default=1)
+    pm.add_argument("-maxocc", type=int, default=None)
+    pm.add_argument("-indexname", default=None)
+    pm.add_argument("--cpu", action="store_true")
+    ps = sp.add_parser("search")
+    ps.add_argument("-tyr", required=True, help="tallymer index")
+    ps.add_argument("-q", nargs="+", required=True, help="query files")
+    ps.add_argument("-strand", default="f",
+                    help="f=forward p=reverse ('fp' both); gt default f")
+    ps.add_argument("-output", nargs="+", default=["qseqnum", "qpos",
+                                                   "counts"])
+    ps.add_argument("--cpu", action="store_true")
+    return pm, ps
+
+
+def cmd_readjoiner(args):
+    from .assembly import readjoiner as rj
+    from .device import resolve_device
+    dev = resolve_device(args.device)
+    if args.sub == "prefilter":
+        rs = rj.ReadSet.from_files(
+            args.db, maxlow=args.maxlow, lowqual=args.lowqual,
+            phredbase=64 if args.phred64 else 33)
+        contained = rj.find_contained(rs, device=dev)
+        keepmask = ~contained
+        posmask = np.repeat(keepmask, rs.lens)
+        np.savez(args.readset + ".reads", blob=rs.blob[posmask],
+                 lens=rs.lens[keepmask])
+        print(f"# {rs.num_reads} reads, {int(contained.sum())} contained, "
+              f"{int(keepmask.sum())} kept", file=sys.stderr)
+    elif args.sub == "overlap":
+        rs = _load_readset(args.readset)
+        spms = rj.find_spms(rs, args.l, singlestrand=args.singlestrand)
+        if args.spmformat in ("bin32", "bin64"):
+            spms.write_bin(args.readset + ".spm",
+                           bits=32 if args.spmformat == "bin32" else 64)
+        else:
+            with open(args.readset + ".spm", "w") as f:
+                for line in spms.lines():
+                    f.write(line + "\n")
+        print(f"# {spms.length.size} SPMs", file=sys.stderr)
+    elif args.sub == "cgraph":
+        rs = _load_readset(args.readset)
+        if os.path.exists(args.readset + ".spm"):
+            spms = rj.SpmList.read(args.readset + ".spm")
+        else:
+            spms = rj.find_spms(rs, args.l)
+        cg = rj.ContigsGraph.from_assembly(rs, spms,
+                                           min_depth=args.depthcutoff)
+        merges = cg.simplify()
+        with open(args.readset + ".cgraph.dot", "w") as f:
+            f.write(cg.show_dot())
+        with open(args.readset + ".paths", "w") as f:
+            for line in cg.output_paths():
+                f.write(line + "\n")
+        print(f"# cgraph: {len(cg.seqs) - len(cg.deleted)} contigs after "
+              f"{merges} junction merges", file=sys.stderr)
+    elif args.sub == "assembly":
+        rs = _load_readset(args.readset)
+        if os.path.exists(args.readset + ".spm"):
+            spms = rj.SpmList.read(args.readset + ".spm", args.l)
+        else:
+            spms = rj.find_spms(rs, args.l)
+        g = rj.StringGraph.from_spms(rs, spms)
+        g.reduce_self()
+        g.reduce_transitive()
+        contigs = g.spell_contigs(min_depth=args.depthcutoff,
+                                  min_length=args.lengthcutoff)
+        with open(args.readset + ".contigs.fas", "w") as f:
+            for i, (seq, depth, desc) in enumerate(contigs):
+                f.write(f">contig_{i} length={len(seq)} depth={depth} "
+                        f"{desc}\n{seq}\n")
+        print(f"# {len(contigs)} contigs", file=sys.stderr)
+    elif args.sub == "spmtest":
+        rs = rj.ReadSet.from_files(args.db)
+        spms = rj.find_spms(rs, args.l, singlestrand=args.singlestrand)
+        for line in spms.lines():
+            print(line)
+    return 0
+
+
+def _load_readset(name):
+    from .assembly.readjoiner import ReadSet
+    d = np.load(name + ".reads.npz")
+    if "blob" in d.files:
+        return ReadSet(blob=d["blob"], lens=d["lens"])
+    return ReadSet([d[k] for k in sorted(d.files,
+                                         key=lambda s: int(s[1:]))])
+
+
+def _add_readjoiner(sub):
+    p = sub.add_parser("readjoiner", help="string graph assembler")
+    sp = p.add_subparsers(dest="sub", required=True)
+    pp_ = sp.add_parser("prefilter")
+    pp_.add_argument("-db", nargs="+", required=True)
+    pp_.add_argument("-readset", default="reads")
+    pp_.add_argument("-maxlow", type=int, default=None,
+                     help="max low-quality positions per FASTQ read")
+    pp_.add_argument("-lowqual", type=int, default=0,
+                     help="phred value considered low")
+    pp_.add_argument("-phred64", action="store_true")
+    po = sp.add_parser("overlap")
+    po.add_argument("-readset", default="reads")
+    po.add_argument("-l", type=int, default=45)
+    po.add_argument("-singlestrand", action="store_true")
+    po.add_argument("-spmformat", default="bin32",
+                    choices=["text", "bin32", "bin64"])
+    pc = sp.add_parser("cgraph")
+    pc.add_argument("-readset", default="reads")
+    pc.add_argument("-l", type=int, default=45)
+    pc.add_argument("-depthcutoff", type=int, default=1)
+    pa = sp.add_parser("assembly")
+    pa.add_argument("-readset", default="reads")
+    pa.add_argument("-l", type=int, default=45)
+    pa.add_argument("-depthcutoff", type=int, default=3)
+    pa.add_argument("-lengthcutoff", type=int, default=100)
+    ps = sp.add_parser("spmtest")
+    ps.add_argument("-db", nargs="+", required=True)
+    ps.add_argument("-l", type=int, default=3)
+    ps.add_argument("-singlestrand", action="store_true")
+    return pp_, po, pc, pa, ps
+
+
+def cmd_encseq2spm(args):
+    """ref: src/tools/gt_encseq2spm.c — suffix-prefix matches of an
+    encoded read set (the firstcodes engine as a standalone tool)."""
+    from .assembly.readjoiner import ReadSet, find_spms
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    _common_refusals(args)
+    resolve_device(args.device)
+    enc = Encseq.load(args.ii)
+    # the reads are the sequences: the codes without their separators,
+    # in one pass (a position lookup per read is quadratic in the reads)
+    rs = ReadSet(blob=np.delete(enc.codes, enc.ssp),
+                 lens=enc.seq_length(np.arange(enc.num_sequences)))
+    spm = find_spms(rs, args.l, singlestrand=args.singlestrand)
+    if args.spm == "show":
+        for line in spm.lines():
+            print(line)
+    else:
+        print(f"number of suffix-prefix matches: {spm.length.size}")
+    return 0
+
+
+def _add_encseq2spm(sub):
+    p = sub.add_parser("encseq2spm", help="compute suffix-prefix matches")
+    p.add_argument("-ii", required=True)
+    p.add_argument("-l", type=int, required=True, help="minimum SPM length")
+    p.add_argument("-spm", default="count", choices=["count", "show"])
+    p.add_argument("-singlestrand", action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_genomediff(args):
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .match.genomediff import genomediff
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    genomes = [Encseq.from_files([f]) for f in args.files]
+    sums, kr = genomediff(genomes, device=dev)
+    names = [os.path.basename(f).split(".")[0] for f in args.files]
+    width = max(len(n) for n in names) + 1
+    # shulen-sum matrix then Kr matrix (ref: genomediff output,
+    # testdata/genomediff/*-kr.out)
+    print(len(genomes))
+    for i, name in enumerate(names):
+        print(f"{name:<{width}}" + " ".join(
+            str(int(sums[i, j])) for j in range(len(genomes))) + " ")
+    print(len(genomes))
+    for i, name in enumerate(names):
+        print(f"{name:<{width}}" + " ".join(
+            f"{kr[i, j]:.6f}" for j in range(len(genomes))) + " ")
+    return 0
+
+
+def _add_genomediff(sub):
+    p = sub.add_parser("genomediff", help="pairwise Kr divergence")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_shulengthdist(args):
+    """ref: src/tools/gt_shulen.c — without -q: the pairwise
+    sum-of-shulen matrix over the index's units (print format of
+    esa-shulen.c:341 shulengthdist_print); with -q: one total of the
+    query files against the index (gt_esa2shulengthqueryfiles)."""
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .match.genomediff import shulen_sums
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.ii)
+    if args.q:
+        from .core.seqio import read_seqfiles
+        qs = [enc.alphabet.encode(seq) for seq in read_seqfiles(args.q).seqs]
+        sums = shulen_sums([enc.codes] + qs, [0], enc.alphabet, dev)
+        print(int(sums[1:, 0].sum()))
+        return 0
+    # units: one per sequence (the multi-file index maps each input to
+    # one unit; our encseq keeps per-sequence units)
+    units = [enc.codes[int(enc.seq_startpos(i)):
+                       int(enc.seq_endpos(i)) + 1]
+             for i in range(enc.num_sequences)]
+    n = len(units)
+    dist = shulen_sums(units, range(n), enc.alphabet, dev)
+    print("# sum of shulen")
+    print(n)
+    for idx2 in range(n):
+        row = "".join(
+            (f"{dist[idx1, idx2]}\t" if idx1 != idx2 else "0.000000\t")
+            for idx1 in range(n))
+        print(f"{idx2}\t{row}")
+    return 0
+
+
+def _add_shulengthdist(sub):
+    p = sub.add_parser("shulengthdist",
+                       help="pairwise sum of shortest unique substrings")
+    p.add_argument("-ii", required=True)
+    p.add_argument("-q", nargs="+", default=None)
+    p.add_argument("-scan", action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_uniquesub(args):
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.esa import load_esa
+    from .match.querysearch import minimum_unique_substrings
+    _common_refusals(args)
+    resolve_device(args.device)
+    esa = load_esa(args.esa)
+    q = Encseq.from_files(args.query)
+    out = []
+    for qpos, length in minimum_unique_substrings(
+            esa, q, args.min, args.max):
+        line = f"{qpos} {length}"
+        if args.output_sequence:
+            line += " " + q.alphabet.decode(q.codes[qpos:qpos + length])
+        out.append(line + "\n")
+    sys.stdout.write("".join(out))
+    return 0
+
+
+def _add_uniquesub(sub):
+    p = sub.add_parser("uniquesub", help="minimum unique substrings")
+    p.add_argument("-esa", required=True)
+    p.add_argument("-query", nargs="+", required=True)
+    p.add_argument("-min", type=int, default=1)
+    p.add_argument("-max", type=int, default=None)
+    p.add_argument("-output-sequence", dest="output_sequence",
+                   action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_matstat(args):
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.esa import load_esa
+    from .match.querysearch import matching_statistics
+    _common_refusals(args)
+    resolve_device(args.device)
+    esa = load_esa(args.esa)
+    q = Encseq.from_files(args.query)
+    ms = matching_statistics(esa, q)
+    sys.stdout.write("".join(f"{qpos} {int(v)}\n"
+                             for qpos, v in enumerate(ms.tolist())))
+    return 0
+
+
+def _add_matstat(sub):
+    p = sub.add_parser("matstat", help="matching statistics")
+    p.add_argument("-esa", required=True)
+    p.add_argument("-query", nargs="+", required=True)
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def _add_device(p, func) -> None:
+    p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the device work runs (default cuda; "
+                        "never falls back to the CPU)")
+    p.set_defaults(func=func)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="genometools_torch",
         description="genometools_tpu tools ported to PyTorch/CUDA")
     sub = parser.add_subparsers(dest="tool", required=True)
-    _add_suffixerator(sub)
-    _add_seed_extend(sub)
-    _add_repfind(sub)
-    for name, func in (("suffixerator", cmd_suffixerator),
-                       ("seed_extend", cmd_seed_extend),
-                       ("repfind", cmd_repfind)):
-        p = sub.choices[name]
-        p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
-                       help="where the device work runs (default cuda; "
-                            "never falls back to the CPU)")
-        p.set_defaults(func=func)
+    for add, func in ((_add_suffixerator, cmd_suffixerator),
+                      (_add_seed_extend, cmd_seed_extend),
+                      (_add_repfind, cmd_repfind),
+                      (_add_encseq2spm, cmd_encseq2spm),
+                      (_add_genomediff, cmd_genomediff),
+                      (_add_shulengthdist, cmd_shulengthdist),
+                      (_add_uniquesub, cmd_uniquesub),
+                      (_add_matstat, cmd_matstat)):
+        _add_device(add(sub), func)
+    for add, func in ((_add_tallymer, cmd_tallymer),
+                      (_add_readjoiner, cmd_readjoiner)):
+        for p in add(sub):          # each subcommand's parser
+            _add_device(p, func)
     return parser
 
 

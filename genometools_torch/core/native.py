@@ -5,10 +5,13 @@ the port calls: the ctypes loader and the host engines of the
 suffixerator, seed_extend and repfind paths (SA-IS and Kasai, FASTA
 intake, the .esq two-bit decoder, k-mer lists, the seed-pair join, the
 greedy and xdrop batches, the fused seed_extend engine, the maximal-pairs
-walks and the match-line writer). The C++ source is the
-repository's shared ``native/gtnative.cpp``; it is compiled on demand
-with g++ -O3 into ``genometools_torch/_build/`` and loaded via ctypes.
-Every function returns None when the library cannot be built.
+walks and the match-line writer), of tallymer (the ESA walk, the
+ESA-free counter, the .mer lookup, the search-line writer) and of
+readjoiner (the FASTA read cleaner, the SPM join, the unitig walk).
+The C++ source is the repository's shared ``native/gtnative.cpp``; it
+is compiled on demand with g++ -O3 into ``genometools_torch/_build/``
+and loaded via ctypes. Every function returns None when the library
+cannot be built.
 """
 
 from __future__ import annotations
@@ -578,3 +581,258 @@ def fasta_encseq_native(data: bytes, lut: np.ndarray):
             he.ctypes.data_as(i64p), seen.ctypes.data_as(u8p),
             cl.ctypes.data_as(i64p))
     return (codes[:int(cl[0])], lens[:ns], hs[:ns], he[:ns], seen)
+
+
+def tallymer_mkindex_native(codes: np.ndarray, suftab: np.ndarray,
+                            lcp_small: np.ndarray, k: int, minocc: int,
+                            maxocc: int | None):
+    """(packed_mers uint8[nmers, merbytes], counts uint32[nmers],
+    counts_capped uint8[nmers]) or None without the lib. Single linear
+    ESA pass in C++, the host engine for `tallymer mkindex`
+    (ref: src/match/tyr-mkindex.c:514)."""
+    lib = get_lib()
+    if lib is None or k > 255:
+        return None
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    fn = lib.gt_tallymer_mkindex
+    if fn.argtypes is None:
+        fn.argtypes = [
+            u8, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint64), u8,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            u8, ctypes.POINTER(ctypes.c_uint32), u8,
+            ctypes.POINTER(ctypes.c_int64)]
+    codes = np.ascontiguousarray(codes, np.uint8)
+    suftab = np.ascontiguousarray(suftab, np.uint64)
+    lcp_small = np.ascontiguousarray(lcp_small, np.uint8)
+    n1 = suftab.size
+    merbytes = (k + 3) // 4
+    out_mers = np.empty((n1, merbytes), np.uint8)
+    out_counts = np.empty(n1, np.uint32)
+    out_small = np.empty(n1, np.uint8)
+    nm = np.zeros(1, np.int64)
+    fn(codes.ctypes.data_as(u8), codes.size,
+       suftab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+       lcp_small.ctypes.data_as(u8), n1, k, minocc,
+       -1 if maxocc is None else maxocc,
+       out_mers.ctypes.data_as(u8),
+       out_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+       out_small.ctypes.data_as(u8),
+       nm.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    n = int(nm[0])
+    return out_mers[:n], out_counts[:n], out_small[:n]
+
+
+def spm_find_native(blob, starts, lens, k: int, minlen: int,
+                    strand_canon: bool):
+    """Readjoiner SPM join (gt_spm_find; capability of firstcodes +
+    gt_spmsk, ref: src/match/firstcodes.c + esa-spmsk.c). Returns
+    (aidx, bidx, L) int64 arrays in ascending-position emission order,
+    or None without the lib / k > 31."""
+    lib = get_lib()
+    if lib is None or k > 31 or k <= 0:
+        return None
+    try:
+        lib.gt_spm_find
+    except AttributeError:
+        return None
+    blob = np.ascontiguousarray(blob, np.uint8)
+    starts = np.ascontiguousarray(starts, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if lib.gt_spm_find.argtypes is None:
+        lib.gt_spm_find.restype = ctypes.c_int64
+        lib.gt_spm_find.argtypes = [
+            u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(i64p), ctypes.POINTER(i64p),
+            ctypes.POINTER(i64p)]
+    oa, ob, ol = i64p(), i64p(), i64p()
+    nlanes = int(os.environ.get("GT_SPM_LANES", 0)) or \
+        (os.cpu_count() or 1)
+    cnt = lib.gt_spm_find(
+        blob.ctypes.data_as(u8p), starts.ctypes.data_as(i64p),
+        lens.ctypes.data_as(i64p), starts.size, k, minlen,
+        int(strand_canon), nlanes,
+        ctypes.byref(oa), ctypes.byref(ob), ctypes.byref(ol))
+    if cnt < 0:
+        return None
+
+    def take64(ptr, n):
+        if n == 0:
+            lib.gt_free(ptr)
+            return np.zeros(0, np.int64)
+        out = np.ctypeslib.as_array(ptr, shape=(n,)).copy()
+        lib.gt_free(ptr)
+        return out
+    return take64(oa, cnt), take64(ob, cnt), take64(ol, cnt)
+
+
+def tallymer_count_native(flat, seq_start, seq_len, k: int, minocc: int,
+                          maxocc):
+    """ESA-free tallymer counting (gt_tallymer_count): radix over the
+    window codes of the per-sequence spans; byte-identical mer/count
+    planes to the ESA walk. Returns (packed, counts u32, small u8) or
+    None."""
+    lib = get_lib()
+    if lib is None or k > 31:
+        return None
+    try:
+        fn = lib.gt_tallymer_count
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       u8p, u32p, u8p]
+    flat = np.ascontiguousarray(flat, np.uint8)
+    seq_start = np.ascontiguousarray(seq_start, np.int64)
+    seq_len = np.ascontiguousarray(seq_len, np.int64)
+    cap = int(np.maximum(seq_len - k + 1, 0).sum())
+    merbytes = (k + 3) // 4
+    if cap == 0:
+        return (np.zeros((0, merbytes), np.uint8), np.zeros(0, np.uint32),
+                np.zeros(0, np.uint8))
+    mers = np.empty((cap, merbytes), np.uint8)
+    counts = np.empty(cap, np.uint32)
+    small = np.empty(cap, np.uint8)
+    nm = fn(flat.ctypes.data_as(u8p), seq_start.ctypes.data_as(i64p),
+            seq_len.ctypes.data_as(i64p), seq_start.size, int(k),
+            int(minocc), -1 if maxocc is None else int(maxocc),
+            os.cpu_count() or 1, mers.ctypes.data_as(u8p),
+            counts.ctypes.data_as(u32p), small.ctypes.data_as(u8p))
+    if nm < 0:
+        return None
+    return mers[:nm], counts[:nm], small[:nm]
+
+
+def tyr_write_lines_native(qs, qp, ct, st, path: str, with_seqnum: bool,
+                           append: bool) -> bool:
+    """Bulk tallymer-search line emission (gt_tyr_write_lines)."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    try:
+        fn = lib.gt_tyr_write_lines
+    except AttributeError:
+        return False
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [i64p, i64p, i64p, u8p, ctypes.c_int64,
+                       ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    qs = np.ascontiguousarray(qs, np.int64)
+    qp = np.ascontiguousarray(qp, np.int64)
+    ct = np.ascontiguousarray(ct, np.int64)
+    st = np.ascontiguousarray(st, np.uint8)
+    rc = fn(qs.ctypes.data_as(i64p), qp.ctypes.data_as(i64p),
+            ct.ctypes.data_as(i64p), st.ctypes.data_as(u8p), ct.size,
+            path.encode(), 1 if with_seqnum else 0, 1 if append else 0)
+    return rc == 0
+
+
+def fasta_clean_reads_native(data: bytes):
+    """FASTA bytes -> (blob u8, lens i64) of 2-bit-clean reads
+    (gt_fasta_clean_reads; reads with non-ACGT symbols dropped whole).
+    None without the lib."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_fasta_clean_reads
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, ctypes.c_int64, u8p, i64p, i64p]
+    buf = np.frombuffer(data, np.uint8)
+    blob = np.empty(buf.size, np.uint8)
+    lens = np.empty(buf.size // 2 + 2, np.int64)
+    bl = np.zeros(1, np.int64)
+    n = fn(buf.ctypes.data_as(u8p), buf.size, blob.ctypes.data_as(u8p),
+           lens.ctypes.data_as(i64p), bl.ctypes.data_as(i64p))
+    return blob[:int(bl[0])].copy(), lens[:n].copy()
+
+
+def strgraph_spell_native(sb, sl, runs, indeg, nverts2, blob, rcblob,
+                          starts, lens, min_depth, min_length):
+    """Unitig spelling walk (gt_strgraph_spell). Returns
+    (contig blob u8, lens, depths, start vertex, end vertex) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_strgraph_spell
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [i64p, i64p, i64p, i64p, ctypes.c_int64, u8p,
+                       u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, u8p, i64p, i64p, i64p, i64p,
+                       i64p]
+    sb = np.ascontiguousarray(sb, np.int64)
+    sl = np.ascontiguousarray(sl, np.int64)
+    runs = np.ascontiguousarray(runs, np.int64)
+    indeg = np.ascontiguousarray(indeg, np.int64)
+    blob = np.ascontiguousarray(blob, np.uint8)
+    rcblob = np.ascontiguousarray(rcblob, np.uint8)
+    starts = np.ascontiguousarray(starts, np.int64)
+    lens = np.ascontiguousarray(lens, np.int64)
+    nreads = lens.size
+    ob = np.empty(blob.size + 16, np.uint8)
+    cap = 2 * nreads + 2
+    ol = np.empty(cap, np.int64)
+    od = np.empty(cap, np.int64)
+    osv = np.empty(cap, np.int64)
+    oev = np.empty(cap, np.int64)
+    obl = np.zeros(1, np.int64)
+    nc = fn(sb.ctypes.data_as(i64p), sl.ctypes.data_as(i64p),
+            runs.ctypes.data_as(i64p), indeg.ctypes.data_as(i64p),
+            int(nverts2), blob.ctypes.data_as(u8p),
+            rcblob.ctypes.data_as(u8p), starts.ctypes.data_as(i64p),
+            lens.ctypes.data_as(i64p), nreads, int(min_depth),
+            int(min_length), ob.ctypes.data_as(u8p),
+            ol.ctypes.data_as(i64p), od.ctypes.data_as(i64p),
+            osv.ctypes.data_as(i64p), oev.ctypes.data_as(i64p),
+            obl.ctypes.data_as(i64p))
+    return (ob[:int(obl[0])], ol[:nc], od[:nc], osv[:nc], oev[:nc])
+
+
+def tyr_lookup_native(packed: np.ndarray, qfull: np.ndarray):
+    """Threaded binary search over the packed big-endian .mer rows
+    (gt_tyr_lookup). qfull: uint64 query keys already shifted to the
+    padded code position. Returns (idx i64, hit bool) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    try:
+        fn = lib.gt_tyr_lookup
+    except AttributeError:
+        return None
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p,
+                       ctypes.c_int64, ctypes.c_int, i64p, u8p]
+    packed = np.ascontiguousarray(packed, np.uint8)
+    nm, merbytes = packed.shape
+    qb = np.ascontiguousarray(
+        qfull.astype(">u8").view(np.uint8).reshape(-1, 8)[:, 8 - merbytes:])
+    nq = qb.shape[0]
+    idx = np.empty(nq, np.int64)
+    hit = np.empty(nq, np.uint8)
+    fn(packed.ctypes.data_as(u8p), nm, merbytes,
+       qb.ctypes.data_as(u8p), nq, os.cpu_count() or 1,
+       idx.ctypes.data_as(i64p), hit.ctypes.data_as(u8p))
+    return idx, hit.astype(bool)

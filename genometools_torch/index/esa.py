@@ -78,6 +78,9 @@ class EnhancedSuffixArray:
     lcptab: np.ndarray | None = None   # int32 (totallength+1)
     prefixlength: int = 0
     bcktab: "Bcktab | None" = None
+    # the .lcp file's bytes, capped at 255 (load_esa): enough for
+    # consumers that only test lcp < k for k <= 255 (tallymer)
+    lcp_small: np.ndarray | None = None
 
     @property
     def total_length(self) -> int:
@@ -338,11 +341,12 @@ def read_prj(indexname: str) -> dict:
 
 
 def load_esa(indexname: str, encseq: Encseq | None = None,
-             need_lcp: bool = True,
+             need_lcp: bool | str = True,
              signed_suftab: bool | str = True) -> EnhancedSuffixArray:
     """An index read from its files (ref: gt_mapsuffixarray,
     src/match/esa-map.c).
 
+    need_lcp="small" keeps only the capped .lcp bytes (esa.lcp_small);
     signed_suftab=False skips the uint64->int64 copy for consumers that
     only gather with the table; "i32" converts the tables straight to
     the int32 the native walkers take."""
@@ -361,16 +365,17 @@ def load_esa(indexname: str, encseq: Encseq | None = None,
     if suftab.size != n + 1:
         raise ValueError(f"{indexname}.suf holds {suftab.size} entries, "
                          f"the .prj says {n + 1}")
-    lcptab = None
+    lcptab = small = None
     if need_lcp and Path(indexname + ".lcp").exists():
-        lcptab = np.fromfile(indexname + ".lcp", dtype=np.uint8).astype(
-            np.int32 if i32 else np.int64)
-        llv_path = Path(indexname + ".llv")
-        if llv_path.exists() and llv_path.stat().st_size:
-            llv = np.fromfile(llv_path, dtype=dt).reshape(-1, 2)
-            lcptab[llv[:, 0].astype(np.int64)] = \
-                np.minimum(llv[:, 1], 2 ** 31 - 1) if i32 else llv[:, 1]
+        small = np.fromfile(indexname + ".lcp", dtype=np.uint8)
+        if need_lcp != "small":
+            lcptab, small = small.astype(np.int32 if i32 else np.int64), None
+            llv_path = Path(indexname + ".llv")
+            if llv_path.exists() and llv_path.stat().st_size:
+                llv = np.fromfile(llv_path, dtype=dt).reshape(-1, 2)
+                lcptab[llv[:, 0].astype(np.int64)] = \
+                    np.minimum(llv[:, 1], 2 ** 31 - 1) if i32 else llv[:, 1]
     return EnhancedSuffixArray(
         encseq=encseq, readmode=int(prj.get("readmode", FWD)),
         suftab=suftab, lcptab=lcptab,
-        prefixlength=int(prj.get("prefixlength", 0)))
+        prefixlength=int(prj.get("prefixlength", 0)), lcp_small=small)

@@ -1,9 +1,10 @@
 """genometools_torch stands alone: no module of the port, and not
 chip_smoke.py, imports the reference package or JAX, and the port's
 suffixerator (in memory and with -parts), suffixerator_e2e, seed_extend
-(with -parts, -maxmat and -estim) and repfind run in a process where
-both are blocked, printing what the reference's CLI prints for the same
-arguments."""
+(with -parts, -maxmat and -estim), repfind, tallymer mkindex|search,
+readjoiner prefilter|overlap|assembly and genomediff run in a process
+where both are blocked, printing what the reference's CLI prints for the
+same arguments and writing the same files."""
 
 import ast
 import contextlib
@@ -17,6 +18,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden_esa"
+READS = ROOT / "tests" / "golden_readjoiner_red" / "reads.fna"
 BLOCKED = ("jax", "genometools_tpu")
 
 
@@ -57,21 +59,35 @@ COMMANDS = [
     ["repfind", "-l", "8", "-ii", "idx", "-extendgreedy", "-minidentity",
      "90"],
     ["repfind", "-l", "8", "-ii", "idx", "-extendxdrop"],
+    ["tallymer", "mkindex", "-esa", "idx", "-mersize", "11"],
+    ["tallymer", "mkindex", "-esa", "idx", "-mersize", "11", "-indexname",
+     "tyr"],
+    ["tallymer", "search", "-tyr", "tyr", "-q", "in.fa", "-strand", "fp",
+     "-output", "qseqnum", "qpos", "counts", "sequence"],
+    ["readjoiner", "prefilter", "-db", "reads.fna", "-readset", "rj"],
+    ["readjoiner", "overlap", "-readset", "rj", "-l", "45"],
+    ["readjoiner", "assembly", "-readset", "rj", "-l", "45"],
+    ["genomediff", "in.fa", "in2.fa"],
 ]
+# files the commands write: the reference writes its own under _ref names
+WRITTEN = {"tyr": ("mer", "mct", "tyr.json"),
+           "rj": ("reads.npz", "spm", "contigs.fas")}
 
 
 def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
     from genometools_tpu.cli import main as ref_main
 
     from genometools_torch.core.encseq import Encseq
-    enc = Encseq.load(str(GOLDEN / "Duplicate.fna" / "idx"))
     lut = np.frombuffer(b"acgtn", np.uint8)
-    with open(tmp_path / "in.fa", "wb") as f:
-        for s in range(enc.num_sequences):
-            lo, hi = int(enc.seq_startpos(s)), int(enc.seq_endpos(s))
-            c = enc.codes[lo:hi + 1]
-            f.write(b">" + enc.descs[s].encode("latin-1") + b"\n")
-            f.write(lut[np.where(c < 4, c, 4)].tobytes() + b"\n")
+    for db, name in (("Duplicate.fna", "in.fa"), ("Random159.fna", "in2.fa")):
+        enc = Encseq.load(str(GOLDEN / db / "idx"))
+        with open(tmp_path / name, "wb") as f:
+            for s in range(enc.num_sequences):
+                lo, hi = int(enc.seq_startpos(s)), int(enc.seq_endpos(s))
+                c = enc.codes[lo:hi + 1]
+                f.write(b">" + enc.descs[s].encode("latin-1") + b"\n")
+                f.write(lut[np.where(c < 4, c, 4)].tobytes() + b"\n")
+    (tmp_path / "reads.fna").write_bytes(READS.read_bytes())
     script = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED) +
@@ -102,8 +118,17 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
             if argv[0] == "suffixerator":
                 continue
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                ref_main(argv + ["--cpu"])
-            assert text == buf.getvalue() and text, argv
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                # readjoiner's parsers take no --cpu
+                ref_main([a + "_ref" if a in WRITTEN else a for a in argv]
+                         + ([] if argv[0] == "readjoiner" else ["--cpu"]))
+            assert text == buf.getvalue(), argv
+            assert text or argv[0] == "readjoiner" or "-indexname" in argv
     finally:
         os.chdir(cwd)
+    for name, exts in WRITTEN.items():
+        for ext in exts:
+            assert (tmp_path / f"{name}.{ext}").read_bytes() == \
+                (tmp_path / f"{name}_ref.{ext}").read_bytes(), (name, ext)
+    assert b"contig_0" in (tmp_path / "rj.contigs.fas").read_bytes()
