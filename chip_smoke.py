@@ -16,7 +16,9 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      leaves none); K1 and K3 also on 131,072 lanes of
      at1MB's own extension workload (some 80 lanes for each persistent
      warp), K3 also on long and off-band lanes (it must take some of
-     the lanes the reference routes to the host); K2r with window tiers
+     the lanes the reference routes to the host), and on 65,536 random
+     lanes at ltrharvest's and tirvish's scores (2, -2, -3, -3): quantum 4,
+     belowscore 5; K2r with window tiers
      up to each tier (the shared memory it holds), under the default and
      weak trims, so that each run covers its widest tier and the weak
      runs both slot tiers (exact: tolerance 0, the outputs are integers,
@@ -110,6 +112,31 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      matstat with phase 3's at1MB index and Atinsert: each tool's lines
      against the same tool over ESAs built by the host SA-IS and Kasai
      engines, with the seconds of each tool and of its build_esa calls.
+  16. ltrharvest, tirvish and ltrclustering on a 32 Mbp genome of planted
+     transposons (4 x 8,000,000 bp, numpy seed 2027, 400 LTR elements of 40
+     families, 200 TIR elements: utils/synthetic.py): suffixerator -tis
+     -suf -lcp, then ltrharvest with the reference's defaults (the
+     library, with its maximal pairs, lanes by route, K3 launches,
+     distinct similarity candidates and step seconds; the CLI with
+     -longoutput -out -outinner against the library), tirvish (its
+     mirrored ESA of 64 Mbp + 1 symbols on the card) and ltrclustering
+     -psmall 80 -plarge 30 on ltrharvest's GFF3 through the CLI; the batch
+     routes against the host routes (one maximal pair at a time) on the
+     whole genome (tabout lines, GFF3, FASTA), ltrclustering against seed_extend's
+     fused host engine; K3 must launch in ltrharvest and tirvish, K1 in
+     ltrclustering; the recall of the planted elements within 3 bp is
+     printed;
+  17. the packed index: packedindex mkindex of phase 3's at1MB index;
+     chkintegrity of gt's four .bdx goldens beside copies of their
+     golden indexes (rev.bdx with -dir 1); tagerator -esa and -pck over
+     the golden Atinsert index with gt's tags, per-tag rows equal to gt's
+     goldens (-maxocc 5, where gt computes prefix matches, must keep rows
+     of the full search); tagerator -e 2 of 1,000 24-mers of at1MB with
+     0-2 random edits (numpy seed 8), -esa rows equal -pck rows, and so
+     of 100 tags of 32-40 bp; FMDeviceRank.backward_search_batch of those tags on the card against
+     the host backward search (CUDA events); prebwt -maxdepth 8 against
+     one host backward search per code; mergeesa of at1MB and Atinsert against host
+     SA-IS + Kasai over the concatenation; sain -check on at1MB.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -131,6 +158,7 @@ import atexit
 import contextlib
 import gzip
 import io
+import itertools
 import json
 import os
 import re
@@ -284,19 +312,21 @@ def k1_check(k1: Kernel, sc, what, gp, desc) -> int:
 
 
 def k3_check(k3: Kernel, what, gp, desc, tiers=None,
-             belowscore: int = 7) -> int:
-    """K3 at the batch's tiers (or `tiers`) against its plain version,
-    with the bound from the kernel's slot-generation counter; returns how
-    many lanes it took that the reference routes to the host."""
+             belowscore: int = 7, quantum: int = 3, half: int = 1) -> int:
+    """K3 at the batch's tiers (or `tiers`) and the score quantum and
+    half against its plain version, with the bound from the kernel's
+    slot-generation counter; returns how many lanes it took that the
+    reference routes to the host."""
     from genometools_torch.ops import xdrop_batch as xb
     from genometools_torch.ops import xdrop_full as xf
     desc = desc[:5]
     cnt = {}
     tiers = tiers or xb.TIERS
     args = (belowscore, tiers, xb.D_BAND)
-    ms, (kout, sg) = cuda_ms(lambda: xf.xdrop_full(gp, *desc, *args))
+    kq = dict(quantum=quantum, half=half)
+    ms, (kout, sg) = cuda_ms(lambda: xf.xdrop_full(gp, *desc, *args, **kq))
     pms, pout = cuda_ms(lambda: xf.xdrop_full_plain(
-        gp, *desc, *args, counts=cnt), warm=False)
+        gp, *desc, *args, counts=cnt, **kq), warm=False)
     err = max(int((kout.long() - pout.long()).abs().max()),
               abs(int(sg) - cnt["slot_gens"]))
     b = k3.add(ms, pms, err, lane_bytes(gp, desc, kout), int(sg))
@@ -306,7 +336,8 @@ def k3_check(k3: Kernel, what, gp, desc, tiers=None,
     off = int((taken & ((desc[1] - desc[3]).abs() > xb.REF_BAND)).sum())
     by_tier = torch.bincount(kout[4][taken].long(),
                              minlength=len(tiers)).tolist()
-    log(f"K3 {what} tiers {tiers} D={xb.D_BAND} N={desc[0].numel()}: "
+    log(f"K3 {what} tiers {tiers} D={xb.D_BAND} belowscore {belowscore} "
+        f"quantum {quantum} half {half} N={desc[0].numel()}: "
         f"kernel {ms:.3f} ms, plain {pms:.1f} ms, {b}, max_abs_err {err}; "
         f"taken by tier {by_tier} (longer than {xb.REF_MAXLEN}: {long}, "
         f"|ulen - vlen| > {xb.REF_BAND}: {off}), unsafe "
@@ -1250,6 +1281,318 @@ def phase_querytools(cli, work: Path, smi: str) -> None:
             + (f"; {out[1:3]}" if argv[0] != "matstat" else ""))
 
 
+def phase_ltr(cli, work: Path, dev, smi: str) -> None:
+    """Phase 16: ltrharvest, tirvish and ltrclustering on a 32 Mbp
+    planted-transposon genome (4 x 8,000,000 bp, numpy seed 2027, 400
+    LTR elements of 40 families, 200 TIR elements): the batch routes'
+    outputs (tabout lines, GFF3, FASTA) against the host routes' (one
+    maximal pair at a time, as the reference) on the whole genome,
+    ltrclustering's GFF3 against seed_extend's fused host engine,
+    the launches of K3 (ltrharvest, tirvish) and K1 (ltrclustering) read
+    around each run, and the recall of the planted elements within 3 bp
+    (printed)."""
+    from genometools_torch.anno.gff3 import gff3_to_string, parse_gff3
+    from genometools_torch.index.esa import Encseq
+    from genometools_torch.ltr import ltrclustering as lc
+    from genometools_torch.ltr import ltrharvest as lh
+    from genometools_torch.ltr import tirvish as tv
+    from genometools_torch.ops import greedy_full as gf
+    from genometools_torch.ops import xdrop_batch as xb
+    from genometools_torch.ops import xdrop_full as xf
+    from genometools_torch.utils.synthetic import planted_transposons
+    from genometools_torch.utils.synthetic import write_fasta as fasta
+    t0 = time.perf_counter()
+    seqs, planted = planted_transposons()
+    fasta(seqs, work / "pt.fna", "chr")
+    log(f"planted_transposons: 4 x 8,000,000 bp, {len(planted)} elements, "
+        f"{time.perf_counter() - t0:.1f}s to generate")
+    lines, dt = run_cli(cli, ["suffixerator", "-db", "pt.fna", "-indexname",
+                              "pt", "-tis", "-suf", "-lcp"])
+    log(f"suffixerator -tis -suf -lcp pt.fna: {dt:.3f}s [{smi}]")
+    enc = Encseq.load("pt")
+
+    # ltrharvest: the library with its step times, then the CLI
+    params = lh.LTRHarvestParams(with_tsd=True)
+    reset_counts()
+    tr = {}
+    t0 = time.perf_counter()
+    preds = lh.ltrharvest(enc, params, device=dev, trace=tr)
+    dt = time.perf_counter() - t0
+    k3 = xf.launches
+    log(f"ltrharvest (defaults, -mintsd 4): {len(preds)} predictions in "
+        f"{dt:.3f}s [{smi}]; maximal pairs {tr['maxpairs']}, pairs "
+        f"kept {tr['pairs']}, xdrop lanes {tr['lanes']} ("
+        f"{xdrop_lanes(xb)}), K3 launches {k3}; candidates "
+        f"{tr['candidates']}, distinct {tr['distinct']}; seconds: "
+        f"build_esa {tr['build_esa_s']:.3f}, maxpairs "
+        f"{tr['maxpairs_s']:.3f}, extensions {tr['extensions_s']:.3f}, "
+        f"similarity {tr['similarity_s']:.3f}, filters "
+        f"{tr['filters_s']:.3f}, output {tr['output_s']:.3f}")
+    if k3 == 0:
+        raise SystemExit("ltrharvest launched K3 no time")
+    out, dt = run_cli(cli, ["ltrharvest", "-index", "pt", "-longoutput",
+                            "-out", "pt.fas", "-outinner", "pt.inner.fas"])
+    if out[1:] != lh.tabout_lines(preds, enc, True):
+        raise SystemExit("the ltrharvest CLI's lines differ from the "
+                         "library's")
+    gff3 = gff3_to_string(lh.gff3_nodes(preds, enc))
+    (work / "pt.gff3").write_text(gff3)
+    fas = lh.fasta_out_entries(preds, enc)
+    if (work / "pt.fas").read_text() != "".join(x + "\n" for x in fas):
+        raise SystemExit("the ltrharvest CLI's FASTA differs")
+    log(f"ltrharvest CLI -tabout -longoutput -out -outinner: {dt:.3f}s, "
+        f"{len(out) - 1} lines equal the library's")
+    ltrs = planted[planted[:, 0] == 0]
+    hit = sum(any(p.seqnum == r[1] and abs(p.start1 - r[2]) <= 3 and
+                  abs(p.end2 - r[5]) <= 3 for p in preds) for r in ltrs)
+    over = sum(any(p.seqnum == r[1] and p.start1 <= r[5] and
+                   r[2] <= p.end2 for p in preds) for r in ltrs)
+    log(f"ltrharvest recall: {hit} of {len(ltrs)} planted LTR elements "
+        f"within 3 bp, {over} overlapped by a prediction")
+    t0 = time.perf_counter()
+    h = lh.ltrharvest(enc, params, device=dev, engine="host")
+    th = time.perf_counter() - t0
+    for what, f in (("tabout", lambda q: lh.tabout_lines(q, enc, True)),
+                    ("GFF3", lambda q: gff3_to_string(lh.gff3_nodes(q, enc))),
+                    ("FASTA", lambda q: lh.fasta_out_entries(q, enc)),
+                    ("inner FASTA",
+                     lambda q: lh.fasta_out_entries(q, enc, True))):
+        if f(preds) != f(h):
+            raise SystemExit(f"ltrharvest {what} differs between the batch "
+                             f"and host routes")
+    log(f"ltrharvest host route (pair by pair, all {tr['pairs']} pairs the "
+        f"filters keep): {th:.3f}s; {len(h)} predictions, tabout, GFF3 and "
+        f"FASTA equal the batch route's")
+
+    # tirvish
+    reset_counts()
+    tr = {}
+    t0 = time.perf_counter()
+    pairs = tv.tirvish(enc, tv.TIRvishParams(), device=dev, trace=tr)
+    dt = time.perf_counter() - t0
+    k3 = xf.launches
+    log(f"tirvish (defaults, mirrored ESA of {2 * enc.total_length + 1} "
+        f"symbols): {len(pairs)} predictions in {dt:.3f}s [{smi}]; maximal "
+        f"pairs {tr['maxpairs']}, seeds kept {tr['seeds']}, xdrop lanes "
+        f"{tr['lanes']} ({xdrop_lanes(xb)}), K3 launches {k3}; seconds: "
+        f"build_esa {tr['build_esa_s']:.3f}, maxpairs {tr['maxpairs_s']:.3f}"
+        f", extensions {tr['extensions_s']:.3f}, filters "
+        f"{tr['filters_s']:.3f}, TSDs and similarity {tr['pairs_s']:.3f}")
+    if k3 == 0:
+        raise SystemExit("tirvish launched K3 no time")
+    out, dt = run_cli(cli, ["tirvish", "-index", "pt"])
+    if "".join(x + "\n" for x in out) != \
+            gff3_to_string(tv.gff3_nodes(pairs, enc)):
+        raise SystemExit("the tirvish CLI's GFF3 differs from the library's")
+    tirs = planted[planted[:, 0] == 1]
+    hit = sum(any(q.contignumber == r[1] and
+                  abs(q.left_tir_start - int(enc.seq_startpos(r[1])) - r[2])
+                  <= 3 for q in pairs) for r in tirs)
+    log(f"tirvish CLI: {dt:.3f}s, GFF3 equals the library's; recall: "
+        f"{hit} of {len(tirs)} planted TIR elements' left arms within 3 bp")
+    t0 = time.perf_counter()
+    h = tv.tirvish(enc, tv.TIRvishParams(), device=dev, engine="host")
+    th = time.perf_counter() - t0
+    if gff3_to_string(tv.gff3_nodes(h, enc)) != \
+            gff3_to_string(tv.gff3_nodes(pairs, enc)):
+        raise SystemExit("tirvish's GFF3 differs between the batch and host "
+                         "routes")
+    log(f"tirvish host route (seed by seed, all {tr['seeds']} seeds the "
+        f"filters keep): {th:.3f}s; {len(h)} predictions, GFF3 equals the "
+        f"batch route's")
+
+    # ltrclustering on ltrharvest's GFF3
+    reset_counts()
+    out, dt = run_cli(cli, ["ltrclustering", "-psmall", "80", "-plarge",
+                            "30", "pt", "pt.gff3"])
+    k1 = gf.launches
+    t0 = time.perf_counter()
+    fused = gff3_to_string(lc.ltrclustering(enc, parse_gff3(gff3), 80, 30,
+                                            engine="fused"))
+    tf = time.perf_counter() - t0
+    if "".join(x + "\n" for x in out) != fused:
+        raise SystemExit("ltrclustering differs from its fused host route")
+    clids = {x.split("clid=")[1].split(";")[0] for x in out if "clid=" in x}
+    log(f"ltrclustering -psmall 80 -plarge 30: {dt:.3f}s [{smi}], K1 "
+        f"launches {k1}, {len(clids)} cluster ids; equals the fused host "
+        f"route ({tf:.3f}s)")
+    if k1 == 0:
+        raise SystemExit("ltrclustering launched K1 no time")
+
+
+def tag_rows(lines) -> dict:
+    """Per tag, its sorted rows (tagerator's output, as
+    tests/test_tagerator_golden.py compares it)."""
+    per, cur = {}, None
+    for line in lines:
+        if line.startswith("#\t"):
+            cur = line.split("\t")[1]
+            per.setdefault(cur, [])
+        elif not line.startswith("#") and line.strip():
+            per[cur].append(tuple(line.split()))
+    return {k: sorted(v) for k, v in per.items()}
+
+
+def phase_packed(cli, work: Path, dev, smi: str) -> None:
+    """Phase 17: the packed index and the ESA tools on phase 3's at1MB
+    index and gt's goldens."""
+    from genometools_torch.index.esa import (EnhancedSuffixArray, Encseq,
+                                             host_sa_lcp, write_esa)
+    from genometools_torch.index import fmindex as fmi
+    gtag = ROOT / "tests" / "golden_tagerator"
+    _, dt = run_cli(cli, ["packedindex", "mkindex", "-ii", "idx",
+                          "-indexname", "pidx"])
+    log(f"packedindex mkindex of at1MB: {dt:.3f}s [{smi}]")
+    for gold, db, rm in (("default.bdx", "Atinsert.fna", 0),
+                         ("bsize4.bdx", "Duplicate.fna", 0),
+                         ("rev.bdx", "Random.fna", 1),
+                         ("ttt.bdx", "TTT-small.fna", 0)):
+        for f in (GOLDEN / db).iterdir():
+            shutil.copy(f, work / f"b_{db}{f.suffix}")
+        shutil.copy(ROOT / "tests" / "golden_bdx" / gold,
+                    work / f"b_{db}.bdx")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["packedindex", "chkintegrity", "-ii", f"b_{db}",
+                           "-dir", str(rm)])
+        if rc != 0:
+            raise SystemExit(f"chkintegrity refused gt's {gold}")
+        log(f"chkintegrity {gold} (-dir {rm}): {err.getvalue().strip()}")
+    atins = str(GOLDEN / "Atinsert.fna" / "idx")
+    gold_args = [(["-e", "0"], "golden_e_0.txt"),
+                 (["-e", "1"], "golden_e_1.txt"),
+                 (["-e", "2"], "golden_e_2.txt"),
+                 (["-e", "2", "-best"], "golden_e_2_best.txt"),
+                 (["-e", "1", "-nop"], "golden_e_1_nop.txt"),
+                 (["-e", "1", "-nod"], "golden_e_1_nod.txt"),
+                 (["-e", "1", "-output", "tagnum", "tagseq", "dblength",
+                   "dbstartpos", "strand", "edist"],
+                  "golden_e_1_output_tagnum_tagseq_dblength_dbstartpos_"
+                  "strand_edist.txt"),
+                 (["-e", "1", "-maxocc", "5"], "golden_e_1_maxocc_5.txt")]
+    for args, gold in gold_args:
+        for route in ("-esa", "-pck"):
+            out, _ = run_cli(cli, ["tagerator", *args, "-q",
+                                   str(gtag / "tags.fna"), route, atins])
+            got = tag_rows(out)
+            if "-maxocc" in args:
+                # gt computes prefix matches here; the port keeps the first
+                # 5 rows of each search, as the reference package does
+                full = tag_rows(run_cli(cli, [
+                    "tagerator", "-e", "1", "-q", str(gtag / "tags.fna"),
+                    route, atins])[0])
+                if any(not set(v) <= set(full[k]) for k, v in got.items()):
+                    raise SystemExit("tagerator -maxocc rows are not rows "
+                                     "of the unlimited search")
+                continue
+            if got != tag_rows((gtag / gold).read_text().splitlines()):
+                raise SystemExit(f"tagerator {route} {' '.join(args)} "
+                                 f"differs from gt's {gold}")
+    log("tagerator -esa and -pck: per-tag rows equal gt's 7 goldens; "
+        "-maxocc 5 (gt: prefix matches) keeps rows of the full search")
+    # at scale: 1,000 24-mers of at1MB with 0-2 random edits, -e 2
+    at1 = Encseq.load("idx")
+    rng = np.random.default_rng(8)
+    tags = []
+    while len(tags) < 1000:
+        p = int(rng.integers(0, at1.total_length - 24))
+        tag = at1.codes[p:p + 24].copy()
+        if (tag >= 4).any():
+            continue
+        for _ in range(int(rng.integers(0, 3))):
+            tag[rng.integers(0, 24)] = rng.integers(0, 4)
+        tags.append(tag)
+    with open("tags1k.fna", "w") as f:
+        for i, tag in enumerate(tags):
+            f.write(f">t{i}\n{at1.alphabet.decode(tag)}\n")
+    res = {}
+    for route in ("-esa", "-pck"):
+        out, dt = run_cli(cli, ["tagerator", "-e", "2", "-q", "tags1k.fna",
+                                route, "idx"])
+        res[route] = (tag_rows(out), dt)
+    if res["-esa"][0] != res["-pck"][0]:
+        raise SystemExit("tagerator -esa and -pck differ on the 1,000 tags")
+    nrows = sum(len(v) for v in res["-esa"][0].values())
+    log(f"tagerator -e 2, 1,000 24-mers of at1MB: {nrows} rows; -esa "
+        f"{res['-esa'][1]:.3f}s, -pck {res['-pck'][1]:.3f}s [{smi}]; rows "
+        f"equal")
+    # tags longer than 31 - e symbols, with 0-2 random edits
+    with open("tags_long.fna", "w") as f:
+        for i in range(100):
+            L = int(rng.integers(32, 41))
+            p = int(rng.integers(0, at1.total_length - L))
+            tag = at1.codes[p:p + L].copy()
+            tag[tag >= 4] = 0
+            for _ in range(int(rng.integers(0, 3))):
+                tag[rng.integers(0, L)] = rng.integers(0, 4)
+            f.write(f">l{i}\n{at1.alphabet.decode(tag)}\n")
+    res = {}
+    for route in ("-esa", "-pck"):
+        out, dt = run_cli(cli, ["tagerator", "-e", "2", "-q",
+                                "tags_long.fna", route, "idx"])
+        res[route] = (tag_rows(out), dt)
+    if res["-esa"][0] != res["-pck"][0]:
+        raise SystemExit("tagerator -esa and -pck differ on the 32-40 bp "
+                         "tags")
+    nrows = sum(len(v) for v in res["-esa"][0].values())
+    log(f"tagerator -e 2, 100 tags of 32-40 bp of at1MB: {nrows} rows; -esa "
+        f"{res['-esa'][1]:.3f}s, -pck {res['-pck'][1]:.3f}s [{smi}]; rows "
+        f"equal")
+    fm = fmi.fmindex_from_codes(at1.codes, device=dev)
+    rank = fmi.FMDeviceRank(fm, device=dev)
+    pats = np.stack(tags)
+    ms, (lo, hi) = cuda_ms(lambda: rank.backward_search_batch(pats), reps=5)
+    t0 = time.perf_counter()
+    host = [fm.backward_search(p) for p in pats]
+    th = time.perf_counter() - t0
+    if [(int(a), int(b)) for a, b in zip(lo, hi)] != host:
+        raise SystemExit("FMDeviceRank's batch differs from the host "
+                         "backward search")
+    log(f"FMDeviceRank.backward_search_batch, 1,000 24-mers (e = 0): "
+        f"{ms:.3f} ms (CUDA events, mean of 5, host copies included) "
+        f"[{smi}]; host backward_search {th * 1e3:.1f} ms; "
+        f"{int((hi > lo).sum())} found, intervals equal")
+    at1.save("pbt")
+    _, dt = run_cli(cli, ["prebwt", "-pck", "pbt", "-maxdepth", "8"])
+    # the reference's route: one host backward search per code
+    t0 = time.perf_counter()
+    rfm = fmi.fmindex_from_codes(at1.codes[::-1].copy(), device=dev)
+    bounds = {}
+    for depth in range(1, 9):
+        for code in itertools.product(range(4), repeat=depth):
+            lo, hi = rfm.backward_search(np.asarray(code, np.uint8))
+            if hi > lo:
+                bounds["".join(map(str, code))] = [int(lo), int(hi)]
+    th = time.perf_counter() - t0
+    if (work / "pbt.pbt").read_text() != json.dumps(
+            {"maxdepth": 8, "bounds": bounds}):
+        raise SystemExit("prebwt's .pbt differs from the host searches'")
+    log(f"prebwt -maxdepth 8: {dt:.3f}s [{smi}] (87,380 codes in 8 batches),"
+        f" one host backward search per code {th:.3f}s; .pbt equal "
+        f"({len(bounds)} buckets)")
+    _, dt = run_cli(cli, ["mergeesa", "-indexname", "mrg", "-ii", "idx",
+                          atins])
+    merged = Encseq.load("mrg")
+    sa, lcp = host_sa_lcp(merged.suffix_keys())
+    write_esa(EnhancedSuffixArray(merged, 0, sa, lcp), "hmrg")
+    for ext in ("suf", "lcp", "llv"):
+        if (work / f"mrg.{ext}").read_bytes() != \
+                (work / f"hmrg.{ext}").read_bytes():
+            raise SystemExit(f"mergeesa .{ext} differs from host SA-IS + "
+                             f"Kasai")
+    log(f"mergeesa at1MB + Atinsert: {dt:.3f}s [{smi}], "
+        f"{merged.total_length + 1} suffixes; .suf/.lcp/.llv equal host "
+        f"SA-IS + Kasai")
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["sain", "-esa", "idx", "-check"])
+    if rc != 0:
+        raise SystemExit("sain -check failed")
+    log(f"sain -check at1MB: {time.perf_counter() - t0:.3f}s; "
+        f"{err.getvalue().strip()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -1459,6 +1802,10 @@ def main() -> int:
                     workload_lanes(wl, sample, dev)) == 0:
             raise SystemExit("K3 took none of the at1MB lanes the "
                              "reference routes to the host")
+        # ltrharvest's and tirvish's scores (2, -2, -3, -3): quantum 4
+        us, vs = random_flanks(rng, 65536, 512, 0.02, 0.25)
+        k3_check(k3, "random flanks up to 512 at ltrharvest's scores",
+                 *pool_lanes(us, vs, 0, dev), belowscore=5, quantum=4)
         for k in kernels.values():
             log(f"{k.kid} over its shapes: kernel {k.ms:.3f} ms, plain "
                 f"{k.plain_ms:.1f} ms, bound {k.bound_ms:.4f} ms (bytes "
@@ -1759,6 +2106,12 @@ def main() -> int:
 
     with Phase("15 genomediff, shulengthdist, uniquesub, matstat"):
         phase_querytools(cli, work, smi)
+
+    with Phase("16 ltrharvest, tirvish, ltrclustering at 32 Mbp"):
+        phase_ltr(cli, work, dev, smi)
+
+    with Phase("17 packedindex, tagerator, prebwt, mergeesa, sain"):
+        phase_packed(cli, work, dev, smi)
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

@@ -4,7 +4,10 @@ The flags are copies of the reference's parsers
 (``genometools_tpu/cli.py`` ``_add_suffixerator``, ``_add_seed_extend``,
 ``_add_repfind``, ``_add_tallymer``, ``_add_readjoiner``,
 ``_add_encseq2spm``, ``_add_genomediff``, ``_add_shulengthdist``,
-``_add_uniquesub`` and ``_add_matstat``), so the tools accept the same
+``_add_uniquesub``, ``_add_matstat``, ``_add_ltrharvest``,
+``_add_tirvish``, ``_add_ltrclustering``, ``_add_packedindex``,
+``_add_mkfmindex``, ``_add_prebwt``, ``_add_tagerator``,
+``_add_mergeesa`` and ``_add_sain``), so the tools accept the same
 command lines. ``-device {cuda,cpu}`` (default cuda) picks where the
 device work runs; asking for cuda without a card fails, also for the
 tools whose work is host code. Flags the port does not support yet
@@ -737,6 +740,466 @@ def _add_matstat(sub):
     return p
 
 
+# ---------------------------------------------------------------------------
+# ltrharvest / tirvish / ltrclustering
+# ---------------------------------------------------------------------------
+
+def cmd_ltrharvest(args):
+    from .anno.gff3 import gff3_to_string
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .ltr.ltrharvest import (LTRHarvestParams, fasta_out_entries,
+                                 gff3_nodes, ltrharvest, tabout_lines)
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.index)
+    params = LTRHarvestParams(
+        seedlength=args.seed, minlenltr=args.minlenltr,
+        maxlenltr=args.maxlenltr, mindistltr=args.mindistltr,
+        maxdistltr=args.maxdistltr, similar=args.similar,
+        mintsd=args.mintsd, with_tsd=args.mintsd > 0)
+    preds = ltrharvest(enc, params, device=dev)
+    if args.gff3:
+        text = gff3_to_string(gff3_nodes(preds, enc, seqids=args.seqids))
+        if isinstance(args.gff3, str):
+            with open(args.gff3, "w") as f:
+                f.write(text)
+        else:
+            sys.stdout.write(text)
+    if args.tabout != "no" and not args.gff3:
+        print("# s(ret) e(ret) l(ret) s(lLTR) e(lLTR) l(lLTR) "
+              "s(rLTR) e(rLTR) l(rLTR) sim(LTRs) seq-nr")
+        for line in tabout_lines(preds, enc, longoutput=args.longoutput):
+            print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            for line in fasta_out_entries(preds, enc, inner=False):
+                f.write(line + "\n")
+    if args.outinner:
+        with open(args.outinner, "w") as f:
+            for line in fasta_out_entries(preds, enc, inner=True):
+                f.write(line + "\n")
+    return 0
+
+
+def _add_ltrharvest(sub):
+    p = sub.add_parser("ltrharvest", help="LTR retrotransposon prediction")
+    p.add_argument("-index", required=True)
+    p.add_argument("-seed", type=int, default=30)
+    p.add_argument("-minlenltr", type=int, default=100)
+    p.add_argument("-maxlenltr", type=int, default=1000)
+    p.add_argument("-mindistltr", type=int, default=1000)
+    p.add_argument("-maxdistltr", type=int, default=15000)
+    p.add_argument("-similar", type=float, default=85.0)
+    p.add_argument("-mintsd", type=int, default=4)
+    p.add_argument("-gff3", nargs="?", const=True, default=False,
+                   help="GFF3 output (optionally to a file)")
+    p.add_argument("-out", default=None,
+                   help="FASTA of predicted elements")
+    p.add_argument("-outinner", default=None,
+                   help="FASTA of inner regions between the LTRs")
+    p.add_argument("-tabout", default="yes", choices=["yes", "no"])
+    p.add_argument("-longoutput", action="store_true")
+    p.add_argument("-seqids", action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_tirvish(args):
+    """gt tirvish (ref: src/tools/gt_tir.c over
+    src/extended/tir_stream.c)."""
+    from .anno.gff3 import gff3_to_string
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .ltr.tirvish import (TIRvishParams, gff3_nodes,
+                              refseq_match_annotate, tirvish)
+    from .ops.xdrop import XdropScores
+    from .ops.xdrop_batch import check_belowscore
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.index)
+    p = TIRvishParams(
+        min_seed_length=args.seed, min_tir_length=args.mintirlen,
+        max_tir_length=args.maxtirlen, min_tir_distance=args.mintirdist,
+        max_tir_distance=args.maxtirdist, mat=args.mat, mis=args.mis,
+        ins=args.ins, dele=getattr(args, "del"),
+        xdrop_belowscore=args.xdrop,
+        similarity_threshold=args.similar,
+        min_tsd_length=args.mintsd, max_tsd_length=args.maxtsd,
+        vicinity=args.vic, overlaps=args.overlaps)
+    try:
+        check_belowscore(p.xdrop_belowscore,
+                         XdropScores(p.mat, p.mis, p.ins, p.dele))
+    except ValueError as e:
+        raise SystemExit(f"genometools_torch: -xdrop: {e}") from None
+    nodes = gff3_nodes(tirvish(enc, p, device=dev), enc)
+    if args.refseqs:
+        refseq_match_annotate(nodes, enc, [args.refseqs],
+                              min_ali_len_perc=args.min_ali_len_perc,
+                              flcands=args.flcands, source="TIRvish",
+                              device=dev)
+    sys.stdout.write(gff3_to_string(nodes))
+    return 0
+
+
+def _add_tirvish(sub):
+    p = sub.add_parser("tirvish",
+                       help="identify Terminal Inverted Repeat (TIR) "
+                            "elements")
+    p.add_argument("-index", required=True)
+    p.add_argument("-seed", type=int, default=20)
+    p.add_argument("-mintirlen", type=int, default=100)
+    p.add_argument("-maxtirlen", type=int, default=1000)
+    p.add_argument("-mintirdist", type=int, default=500)
+    p.add_argument("-maxtirdist", type=int, default=10000)
+    p.add_argument("-mat", type=int, default=2)
+    p.add_argument("-mis", type=int, default=-2)
+    p.add_argument("-ins", type=int, default=-3)
+    p.add_argument("-del", type=int, default=-3)
+    p.add_argument("-xdrop", type=int, default=5)
+    p.add_argument("-similar", type=float, default=85.0)
+    p.add_argument("-mintsd", type=int, default=2)
+    p.add_argument("-maxtsd", type=int, default=11)
+    p.add_argument("-vic", type=int, default=60)
+    p.add_argument("-overlaps", default="best",
+                   choices=["best", "longest", "no", "all"])
+    p.add_argument("-refseqs", default=None,
+                   help="annotate best reference-sequence matches")
+    p.add_argument("-min_ali_len_perc", type=float, default=10.0)
+    p.add_argument("-flcands", action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_ltrclustering(args):
+    """gt ltrclustering (ref: src/ltr/gt_ltrclustering.c)."""
+    from .anno.gff3 import gff3_to_string, parse_gff3
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .ltr.ltrclustering import ltrclustering
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.indexname)
+    nodes = []
+    for path in args.files:
+        with open(path) as f:
+            nodes.extend(parse_gff3(f.read()))
+    ltrclustering(enc, nodes, args.psmall, args.plarge, device=dev)
+    out = gff3_to_string(nodes)
+    if args.o:
+        with open(args.o, "w") as f:
+            f.write(out)
+    else:
+        sys.stdout.write(out)
+    return 0
+
+
+def _add_ltrclustering(sub):
+    p = sub.add_parser("ltrclustering",
+                       help="cluster features of LTRs")
+    p.add_argument("-psmall", type=int, required=True,
+                   help="match must cover this percent of the smaller "
+                        "sequence")
+    p.add_argument("-plarge", type=int, required=True,
+                   help="match must cover this percent of the larger "
+                        "sequence")
+    p.add_argument("-o", default=None)
+    p.add_argument("indexname")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# the packed index: packedindex, mkfmindex, prebwt, tagerator
+# ---------------------------------------------------------------------------
+
+def cmd_packedindex(args):
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.bdx import decode_bwt, write_bdx
+    from .index.esa import build_esa
+    from .index.fmindex import FMIndex
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    if args.sub == "mkindex":
+        enc = Encseq.from_files(args.db) if args.db else Encseq.load(args.ii)
+        esa = build_esa(enc, with_lcp=False, device=dev)
+        FMIndex.from_esa(esa).save(args.indexname)
+        enc.save(args.indexname)
+        if args.bdx:
+            # also emit the reference's .bdx block-composition format
+            counts = [int((enc.codes == c).sum())
+                      for c in range(enc.alphabet.num_chars)]
+            write_bdx(args.indexname + ".bdx", esa.bwt().astype(np.int16),
+                      counts)
+    elif args.sub == "chkintegrity":
+        # decode a gt-written .bdx (ref: gt packedindex chkintegrity,
+        # src/tools/gt_packedindex_chk_integrity.c) and hold its BWT
+        # against the BWT of the index's own encseq, sorted on the card
+        enc = Encseq.load(args.ii)
+        got = decode_bwt(args.ii + ".bdx")
+        esa = build_esa(enc, readmode=args.dir, with_lcp=False, device=dev)
+        ours = esa.bwt().astype(np.int16)
+        if got.size != ours.size or not (got == ours).all():
+            bad = int(np.flatnonzero(got[:ours.size] != ours)[0]) \
+                if got.size == ours.size else -1
+            print(f"chkintegrity: MISMATCH (first at {bad})",
+                  file=sys.stderr)
+            return 1
+        print(f"# {got.size} symbols verified OK", file=sys.stderr)
+    return 0
+
+
+def _add_packedindex(sub):
+    p = sub.add_parser("packedindex", help="BWT-based compressed index")
+    sp = p.add_subparsers(dest="sub", required=True)
+    pm = sp.add_parser("mkindex")
+    pm.add_argument("-db", nargs="*", default=None)
+    pm.add_argument("-ii", default=None)
+    pm.add_argument("-indexname", required=True)
+    pm.add_argument("-bdx", action="store_true",
+                    help="also write the reference .bdx format")
+    pm.add_argument("--cpu", action="store_true")
+    pc = sp.add_parser("chkintegrity",
+                       help="verify a reference-format .bdx index")
+    pc.add_argument("-ii", required=True)
+    pc.add_argument("-dir", type=int, default=0,
+                    help="readmode the index was built with (0=fwd)")
+    pc.add_argument("--cpu", action="store_true")
+    return pm, pc
+
+
+def cmd_mkfmindex(args):
+    """ref: src/tools/gt_mkfmindex.c (the legacy FM-index tool): one FM
+    implementation backs both mkfmindex and packedindex."""
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.fmindex import build_fmindex
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.ii[0])
+    build_fmindex(enc, device=dev).save(args.fmout)
+    enc.save(args.fmout)
+    return 0
+
+
+def _add_mkfmindex(sub):
+    p = sub.add_parser("mkfmindex", help="construct an FM index")
+    p.add_argument("-ii", nargs="+", required=True)
+    p.add_argument("-fmout", required=True)
+    p.add_argument("-noindexpos", action="store_true")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_prebwt(args):
+    """ref: src/tools/gt_prebwt.c: the BWT prefix-code bucket
+    boundaries of a packed index (.pbt). All 4^d codes of a depth go
+    through one batched backward search on the device."""
+    import json
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.fmindex import fmindex_from_codes, prebwt_bounds
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.load(args.pck)
+    fm = fmindex_from_codes(enc.codes[::-1].copy(), device=dev)
+    bounds = prebwt_bounds(fm, args.maxdepth, device=dev)
+    with open(args.pck + ".pbt", "w") as f:
+        json.dump({"maxdepth": args.maxdepth, "bounds": bounds}, f)
+    return 0
+
+
+def _add_prebwt(sub):
+    p = sub.add_parser("prebwt", help="precompute BWT bucket boundaries")
+    p.add_argument("-pck", required=True)
+    p.add_argument("-maxdepth", type=int, default=4)
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_tagerator(args):
+    """Approximate tag mapping (ref: src/tools/gt_tagerator.c +
+    src/match/tagerator.c); output columns and headers match the
+    reference. Every tag of one strand and one difference count is
+    searched at once (``match/querysearch.py::tagerator_batch``): on
+    the ESA by narrowing, on the packed index by backward steps on the
+    device; the rows and their order are ``tagerator_search``'s and
+    ``pck_tagerator_search``'s."""
+    from .core.chardef import is_special
+    from .core.encseq import Encseq
+    from .core.seqio import read_seqfile
+    from .device import resolve_device
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    if args.esa is None and args.pck is None:
+        raise SystemExit("one of -esa or -pck is required")
+    e = args.e if args.e is not None and args.e >= 0 else 0
+    outkeys = args.output or ["tagnum", "tagseq", "dblength",
+                              "dbstartpos", "strand"]
+    if e == 0:
+        print("# computing complete matches without differences "
+              "(exact matches)")
+    else:
+        print(f"# computing complete matches with up to {e} differences")
+    if args.esa:
+        print(f"# indexname(esa)={args.esa}")
+        from .index.esa import load_esa
+        from .match.querysearch import esa_tagerator_batch
+        enc = Encseq.load(args.esa)
+        esa = load_esa(args.esa, encseq=enc)
+        search = lambda tags, dist: esa_tagerator_batch(esa, tags, dist)
+    else:
+        print(f"# indexname(pck)={args.pck}")
+        from .index.fmindex import fmindex_from_codes, pck_tagerator_batch
+        enc = Encseq.load(args.pck)
+        # forward-trie DFS over the packed index = FM over the REVERSED
+        # codes (like the reference's `packedindex mkindex -dir rev`)
+        fm = fmindex_from_codes(enc.codes[::-1].copy(), device=dev)
+        n = enc.total_length
+        search = lambda tags, dist: pck_tagerator_batch(fm, tags, dist, n,
+                                                        device=dev)
+    print(f"# queryfile={args.q}")
+    print("# for each match show: " + " ".join(outkeys) + " ")
+    comp = enc.alphabet.complement_table()
+    tags, bad = [], None
+    for tagnum, raw in enumerate(read_seqfile(args.q).seqs):
+        codes = enc.alphabet.encode(raw)
+        if is_special(codes).any():
+            bad = tagnum          # the tags before it are printed first
+            break
+        tags.append(codes)
+    strands = []
+    if not args.nod:
+        strands.append(("+", tags))
+    if not args.nop:
+        strands.append(("-", [np.where(is_special(c[::-1]), c[::-1],
+                                       comp[c[::-1]]) for c in tags]))
+    mind = 0 if args.best else e
+    found_rows = {(dist, strand): search(tagcs, dist)
+                  for dist in range(mind, e + 1) for strand, tagcs in strands}
+    for tagnum, codes in enumerate(tags):
+        tagseq = enc.alphabet.decode(codes).lower()
+        if "tagnum" in outkeys or "tagseq" in outkeys:
+            print(f"#\t{tagnum}\t{tagseq}")
+        for dist in range(mind, e + 1):
+            found = False
+            for strand, _ in strands:
+                rows = found_rows[dist, strand][tagnum]
+                if args.maxocc:
+                    rows = rows[:args.maxocc]
+                for pos, dblen, edist in rows:
+                    found = True
+                    s = int(enc.seqnum_of_pos(pos))
+                    rel = pos - int(enc.seq_startpos(s))
+                    cols = []
+                    if "dblength" in outkeys:
+                        cols.append(str(dblen))
+                    if "dbstartpos" in outkeys:
+                        if "abspos" in outkeys:
+                            cols.append(str(pos))
+                        else:
+                            cols += [str(s), str(rel)]
+                    if "dbsequence" in outkeys:
+                        cols.append(enc.alphabet.decode(
+                            enc.codes[pos:pos + dblen]).lower())
+                    if "strand" in outkeys:
+                        cols.append(strand)
+                    if "edist" in outkeys:
+                        cols.append(str(edist))
+                    print("\t".join(cols))
+            if args.best and found:
+                break
+    if bad is not None:
+        raise SystemExit(f"gt-tpu tagerator: error: wildcard in tag "
+                         f"number {bad}")
+    return 0
+
+
+def _add_tagerator(sub):
+    p = sub.add_parser("tagerator", help="map short tags approximately")
+    p.add_argument("-q", required=True, help="tag file (FASTA)")
+    p.add_argument("-e", type=int, default=None, help="max differences")
+    p.add_argument("-esa", default=None, help="enhanced suffix array index")
+    p.add_argument("-pck", default=None, help="packed index")
+    p.add_argument("-nod", action="store_true", help="no direct matches")
+    p.add_argument("-nop", action="store_true", help="no palindromic")
+    p.add_argument("-best", action="store_true")
+    p.add_argument("-maxocc", type=int, default=0)
+    p.add_argument("-output", nargs="+", default=None)
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# mergeesa, sain
+# ---------------------------------------------------------------------------
+
+def cmd_mergeesa(args):
+    """gt dev mergeesa (ref: src/tools/gt_mergeesa.c): merge several
+    enhanced suffix arrays into one, sorted on the card."""
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .index.esa import merge_esas, write_esa
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    esa = merge_esas([Encseq.load(ii) for ii in args.ii], with_lcp=True,
+                     device=dev)
+    esa.encseq.save(args.indexname)
+    write_esa(esa, args.indexname, suf=True, lcp=True)
+    return 0
+
+
+def _add_mergeesa(sub):
+    p = sub.add_parser("mergeesa", help="merge enhanced suffix arrays")
+    p.add_argument("-indexname", required=True)
+    p.add_argument("-ii", nargs="+", required=True)
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
+def cmd_sain(args):
+    """gt dev sain (ref: src/tools/gt_sain.c, src/match/sfx-sain.c:1577):
+    SA-IS linear-time induced-sorting construction on the host, the
+    independent second ESA path; -check holds it against build_esa on
+    the card."""
+    from .core.encseq import Encseq
+    from .core.native import sais_native
+    from .device import resolve_device
+    from .index.esa import build_esa
+    _common_refusals(args)
+    dev = resolve_device(args.device)
+    enc = Encseq.from_files(args.db) if args.db else Encseq.load(args.esa)
+    sa = sais_native(enc.suffix_keys())
+    if sa is None:
+        print("sain: native library unavailable", file=sys.stderr)
+        return 1
+    if args.check:
+        esa = build_esa(enc, with_lcp=False, device=dev)
+        if not (sa.astype(np.int64) == esa.suftab.astype(np.int64)).all():
+            print("sain: MISMATCH vs doubling engine", file=sys.stderr)
+            return 1
+        print(f"# sain == doubling engine on {sa.size} suffixes",
+              file=sys.stderr)
+    if args.suf:
+        indexname = args.indexname or (args.db[0] if args.db else args.esa)
+        sa.astype(np.uint64).tofile(indexname + ".suf")
+    return 0
+
+
+def _add_sain(sub):
+    p = sub.add_parser("sain", help="SA-IS induced-sorting suffix array")
+    p.add_argument("-db", nargs="+", default=None)
+    p.add_argument("-esa", default=None, help="existing encseq index")
+    p.add_argument("-indexname", default=None)
+    p.add_argument("-suf", action="store_true", help="write .suf")
+    p.add_argument("-check", action="store_true",
+                   help="cross-check against the doubling engine")
+    p.add_argument("--cpu", action="store_true")
+    return p
+
+
 def _add_device(p, func) -> None:
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                    help="where the device work runs (default cuda; "
@@ -756,10 +1219,19 @@ def build_parser() -> argparse.ArgumentParser:
                       (_add_genomediff, cmd_genomediff),
                       (_add_shulengthdist, cmd_shulengthdist),
                       (_add_uniquesub, cmd_uniquesub),
-                      (_add_matstat, cmd_matstat)):
+                      (_add_matstat, cmd_matstat),
+                      (_add_ltrharvest, cmd_ltrharvest),
+                      (_add_tirvish, cmd_tirvish),
+                      (_add_ltrclustering, cmd_ltrclustering),
+                      (_add_mkfmindex, cmd_mkfmindex),
+                      (_add_prebwt, cmd_prebwt),
+                      (_add_tagerator, cmd_tagerator),
+                      (_add_mergeesa, cmd_mergeesa),
+                      (_add_sain, cmd_sain)):
         _add_device(add(sub), func)
     for add, func in ((_add_tallymer, cmd_tallymer),
-                      (_add_readjoiner, cmd_readjoiner)):
+                      (_add_readjoiner, cmd_readjoiner),
+                      (_add_packedindex, cmd_packedindex)):
         for p in add(sub):          # each subcommand's parser
             _add_device(p, func)
     return parser

@@ -1,8 +1,9 @@
 """Encseq: the encoded-sequence container.
 
-The port's copy of ``genometools_tpu/core/encseq.py`` (host numpy
-only; the reference's JAX device helpers ``device_codes`` and
-``device_suffix_keys`` are not carried over). Capability equivalent of
+The port's copy of ``genometools_tpu/core/encseq.py``; its device
+helpers ``device_codes`` and ``device_suffix_keys`` (jnp arrays on the
+default device in the reference) are cached torch tensors on an
+explicit device. Capability equivalent of
 the reference GtEncseq (ref: src/core/encseq.c, struct at
 src/core/encseq_rep.h:112-227):
 
@@ -139,6 +140,7 @@ class Encseq:
         self.special_ranges = SpecialRanges(s, l)
         w, wl = _runs(codes == WILDCARD)
         self.wildcard_ranges = SpecialRanges(w, wl)
+        self._device: dict = {}                 # device tensors, cached
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -462,3 +464,27 @@ class Encseq:
             alpha = Alphabet(meta["groups"], meta["wildcards"], "?")
         return cls(data["codes"], data["ssp"], list(meta["descs"]), alpha,
                    mirrored=meta["mirrored"])
+
+    # -- device ------------------------------------------------------------
+    def device_codes(self, readmode: int = FWD, device="cuda"):
+        """The uint8 codes in `readmode` as a torch tensor on `device`
+        (cached per readmode and device)."""
+        return self._on_device("codes", readmode, device,
+                               lambda: self.codes_view(readmode))
+
+    def device_suffix_keys(self, readmode: int = FWD, device="cuda"):
+        """``suffix_keys(readmode)`` as a torch tensor on `device`
+        (cached per readmode and device)."""
+        return self._on_device("keys", readmode, device,
+                               lambda: self.suffix_keys(readmode))
+
+    def _on_device(self, what: str, readmode: int, device, host):
+        import torch
+
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        key = (what, readmode, str(dev))
+        if key not in self._device:
+            self._device[key] = torch.from_numpy(
+                np.ascontiguousarray(host())).to(dev)
+        return self._device[key]

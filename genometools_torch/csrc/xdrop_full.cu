@@ -3,8 +3,10 @@
 //
 // Replaces the Pallas kernel genometools_tpu/ops/xdrop_pallas.py
 // _make_kernel (pl.pallas_call at xdrop_pallas.py:301) and recomputes
-// what it computes (ref: xdrop.c:224-430 with match 2, mismatch -1,
-// indel -2, so EVAL(i+j, d) = i+j-3d): generation 0 is the first lcp on
+// what it computes (ref: xdrop.c:224-430) for any scores whose unit
+// distances are (1, 1, 1): EVAL(i+j, d) = half*(i+j) - quantum*d, with
+// quantum and half from the conf (3 and 1 for match 2, mismatch -1, indel
+// -2; 4 and 1 for ltrharvest's 2, -2, -3): generation 0 is the first lcp on
 // the centre diagonal; each generation picks the candidate row with the
 // DEL > MIS > INS priority, prunes against the best score dback
 // generations back, extends taken cells by their match runs, updates the
@@ -34,7 +36,8 @@
 //       slot;
 //   (c) the dback-entry score ring lives in registers, spread over the
 //       warp (entry r in lane r mod 32, at most two registers a lane),
-//       read with one shuffle: no local memory;
+//       read with one shuffle: no local memory. dback =
+//       (belowscore + half) / quantum + 1 <= 64 bounds belowscore;
 //   (d) only the slot groups that hold [lb-1, ub+1] compute;
 //   (e) a lane writes its result at its own index and adds its candidate
 //       slot-generations to one counter (the bound of the run).
@@ -49,7 +52,7 @@ constexpr int kMaxTiers = 4;
 enum { kSafe = 0, kEdge = 1, kCap = 2, kClip = 3 };
 
 struct XConf {
-  int nt, wt[kMaxTiers], gcap[kMaxTiers], D, belowscore;
+  int nt, wt[kMaxTiers], gcap[kMaxTiers], D, belowscore, quantum, half;
 };
 
 template <int NG>
@@ -81,11 +84,12 @@ struct XBest {
 template <int NG>
 __device__ __forceinline__ int xdrop_lane(const uint32_t* P, int W, int ulen,
                                           int vlen, int D, int gcap,
-                                          int belowscore, int lane,
-                                          XBest& b, int& live) {
+                                          int belowscore, int quantum,
+                                          int half, int lane, XBest& b,
+                                          int& live) {
   const int W32 = W >> 5;
   const int K = 2 * D + 1;
-  const int dback = (belowscore + 1) / 3 + 1;
+  const int dback = (belowscore + half) / quantum + 1;
   const bool uclip = ulen > W, vclip = vlen > W;
   int row[NG], cond[NG];
 #pragma unroll
@@ -105,7 +109,7 @@ __device__ __forceinline__ int xdrop_lane(const uint32_t* P, int W, int ulen,
     row[g] = (32 * g + lane == D) ? init_lcp : GT_NEGINF;
   b.i = init_lcp;
   b.j = init_lcp;
-  b.s = 2 * init_lcp;
+  b.s = 2 * half * init_lcp;
   // ring entry r (the best score dback generations back) in lane r & 31,
   // register r >> 5
   int ring0 = b.s, ring1 = b.s;
@@ -155,7 +159,8 @@ __device__ __forceinline__ int xdrop_lane(const uint32_t* P, int W, int ulen,
       bool has = i_new >= 0;
       const int j_new = i_new - kk;
       const bool pruned =
-          d > dback && has && (i_new + j_new - 3 * d < tref - belowscore);
+          d > dback && has &&
+          (half * (i_new + j_new) - quantum * d < tref - belowscore);
       if (pruned) i_new = GT_NEGINF;
       has = i_new >= 0;
       const int minuv = min(ulen, vlen + kk);
@@ -179,7 +184,8 @@ __device__ __forceinline__ int xdrop_lane(const uint32_t* P, int W, int ulen,
       // a run that reaches the clip of a flank that goes on
       clip_l |= cond[g] && ((uclip && i_ext[g] >= W) ||
                             (vclip && i_ext[g] - kk >= W));
-      sc[g] = takes[g] ? i_ext[g] + (i_ext[g] - kk) - 3 * d : GT_NEGINF;
+      sc[g] = takes[g] ? half * (i_ext[g] + (i_ext[g] - kk)) - quantum * d
+                       : GT_NEGINF;
       lmax = max(lmax, sc[g]);
     }
     const int scbest = gt_wmax(lmax);
@@ -285,8 +291,9 @@ xdrop_full_kernel(const int64_t* __restrict__ pool, long long stride,
     const int ulen = (int)min((long long)ul_g[t], 1LL << 30);
     const int vlen = (int)min((long long)vl_g[t], 1LL << 30);
     XBest b;
-    // a lane's candidate slots fit 32 bits: a live cell needs i + j >=
-    // 3d - belowscore within its window, so d < (2W + belowscore) / 3
+    // a lane's candidate slots fit 32 bits: a live cell needs half *
+    // (i + j) >= quantum * d - belowscore within its window, so d <
+    // (2 W half + belowscore) / quantum
     int live = 0;
     int tier = 0, reason;
     for (;;) {
@@ -303,7 +310,7 @@ xdrop_full_kernel(const int64_t* __restrict__ pool, long long stride,
       load_window(P, gt_lane(pool, stride, su_g, ul_g, sv_g, vl_g, rev_g, t),
                   stride, 0, 0, W >> 5, lane);
       reason = xdrop_lane<NG>(P, W, ulen, vlen, c.D, gcap, c.belowscore,
-                              lane, b, live);
+                              c.quantum, c.half, lane, b, live);
       if ((reason == kClip || reason == kCap) && tier + 1 < c.nt) {
         ++tier;
         continue;
@@ -337,8 +344,10 @@ bool read_conf(const int* conf, XConf& c) {
          (j == 0 || c.wt[j] >= c.wt[j - 1]);
   c.D = conf[1 + 2 * kMaxTiers];
   c.belowscore = conf[2 + 2 * kMaxTiers];
-  return ok && c.D >= 1 && c.belowscore >= 0 &&
-         (c.belowscore + 1) / 3 + 1 <= kRingMax;
+  c.quantum = conf[3 + 2 * kMaxTiers];
+  c.half = conf[4 + 2 * kMaxTiers];
+  return ok && c.D >= 1 && c.belowscore >= 0 && c.quantum >= 1 &&
+         c.half >= 1 && (c.belowscore + c.half) / c.quantum + 1 <= kRingMax;
 }
 
 template <int NG>
@@ -374,7 +383,8 @@ int dispatch(const void* pool, long long stride, const void* const* desc,
 
 }  // namespace
 
-// conf: ntiers, W[4], GENS[4] (per tier), D, belowscore. desc: ustart,
+// conf: ntiers, W[4], GENS[4] (per tier), D, belowscore, quantum, half
+// (the score is half * (i + j) - quantum * d). desc: ustart,
 // ulen, vstart, vlen (int64), rev (uint8). out: (5, N) int32 at each
 // lane's own index: ivalue, jvalue, score, unsafe, the last tier run.
 extern "C" int gt_xdrop_full(const void* pool, long long stride,

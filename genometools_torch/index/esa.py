@@ -379,3 +379,40 @@ def load_esa(indexname: str, encseq: Encseq | None = None,
         encseq=encseq, readmode=int(prj.get("readmode", FWD)),
         suftab=suftab, lcptab=lcptab,
         prefixlength=int(prj.get("prefixlength", 0)), lcp_small=small)
+
+
+def merge_esas(encseqs: list[Encseq], with_lcp: bool = True,
+               device="cuda") -> EnhancedSuffixArray:
+    """Merge several indexed sequence sets into one ESA
+    (ref: gt dev mergeesa, src/match/esa-merge.c / emimergeesa.h).
+
+    The reference streams and merges presorted suffix readers; here, as
+    in the reference package, the combined index is rebuilt: the encseqs
+    are concatenated (a separator between two sets) and ``build_esa``
+    sorts the result on `device`. The result is exactly the ESA of the
+    concatenated sequence sets."""
+    from ..core.chardef import SEPARATOR
+    parts = []
+    ssp = []
+    descs = []
+    off = 0
+    for i, e in enumerate(encseqs):
+        if i > 0:
+            ssp.append(off)
+            off += 1
+        parts.append(e.codes)
+        # inner separators shift by current offset
+        ssp.extend((e.ssp + off).tolist())
+        off += e.codes.size
+        descs.extend(e.descs)
+    codes = np.empty(off, np.uint8)
+    pos = 0
+    for i, pcodes in enumerate(parts):
+        if i > 0:
+            codes[pos] = SEPARATOR
+            pos += 1
+        codes[pos:pos + pcodes.size] = pcodes
+        pos += pcodes.size
+    merged = Encseq(codes, np.asarray(sorted(ssp), np.int64), descs,
+                    encseqs[0].alphabet)
+    return build_esa(merged, with_lcp=with_lcp, device=device)

@@ -11,6 +11,15 @@ WIDE_TIERS; the lanes K3 reports unsafe there re-run on the exact host
 engine (``_host_exact``), so the merged result is bit-equal to the
 scalar engine ``ops/xdrop.py::xdrop_extend`` on every lane.
 
+K3 takes any scores whose unit distances are (1, 1, 1), with their
+quantum and half (seed_extend's (2, -1, -2, -2): quantum 3;
+ltrharvest's and tirvish's (2, -2, -3, -3): quantum 4), at a
+belowscore within the ring of that quantum
+(``xdrop_full.max_belowscore``; beyond it K3 raises). Every lane of
+other scores runs on the scalar engine, as in the reference; so do the
+host lanes of non-default unit scores, which the native batch engine
+does not know.
+
 The reference sends lanes longer than 512 and lanes whose end diagonal
 lies outside its D = 32 band to the host before its kernel runs,
 because its windows had to fit TPU VMEM (its xdrop_batch.py:293-309).
@@ -26,7 +35,8 @@ import torch
 from ..core.native import xdrop_batch_native
 from ..device import resolve_device
 from .pool import pool_flanks, upload_pool
-from .xdrop_full import xdrop_full
+from .xdrop import XdropScores, xdrop_extend
+from .xdrop_full import max_belowscore, xdrop_full
 
 # K = 129 slots: on at1MB's workload D = 32 leaves a tenth of the lanes
 # at the slot edge, D = 64 under 1 % (PERF.md); the kernel computes only
@@ -51,8 +61,9 @@ REF_MAXLEN, REF_BAND = 512, 32
 # finished at (TIERS, then WIDE_TIERS), among them those the reference's filters route to the host
 # (longer than REF_MAXLEN, |ulen - vlen| > REF_BAND); lanes routed to the host
 # engine and the flank symbols copied for them; lanes run again at
-# WIDE_TIERS; all lanes those filters route to the host. Summed over
-# calls; reset with reset_stats()
+# WIDE_TIERS; all lanes those filters route to the host; lanes of
+# non-unit scores, all on the scalar engine. Summed over calls; reset
+# with reset_stats()
 stats: dict = {}
 
 
@@ -60,14 +71,19 @@ def reset_stats() -> None:
     stats.update(kernel_lanes=0,
                  tier_lanes=[0] * (len(TIERS) + len(WIDE_TIERS)),
                  long_lanes=0, offband_lanes=0, host_lanes=0, host_symbols=0,
-                 wide_lanes=0, filtered_lanes=0)
+                 wide_lanes=0, filtered_lanes=0, scalar_lanes=0)
 
 
 reset_stats()
 
 
-def _host_exact(us, vs, belowscore):
-    """Exact host engine: the C++ batch."""
+def _host_exact(us, vs, belowscore, scores: XdropScores = XdropScores()):
+    """Exact host engine: the C++ batch for the default scores, the
+    scalar engine for any other."""
+    if scores != XdropScores():
+        best = [xdrop_extend(u, v, belowscore, scores) for u, v in zip(us, vs)]
+        return tuple(np.asarray([getattr(b, f) for b in best], np.int64)
+                     for f in ("ivalue", "jvalue", "score"))
     res = xdrop_batch_native(us, vs, belowscore)
     if res is None:
         raise RuntimeError("the native host engine is unavailable")
@@ -75,12 +91,25 @@ def _host_exact(us, vs, belowscore):
             res[:, 2].astype(np.int64))
 
 
+def check_belowscore(belowscore: int, scores: XdropScores) -> None:
+    """Raise ValueError where K3 would take the lanes (unit distances)
+    and belowscore lies beyond its ring at the scores' quantum."""
+    sub, ins, dele, quantum, mat2 = scores.distances()
+    top = max_belowscore(quantum, mat2 // 2)
+    if (sub, ins, dele) == (1, 1, 1) and not 0 <= belowscore <= top:
+        raise ValueError(f"xdrop belowscore {belowscore} out of range "
+                         f"[0, {top}] at quantum {quantum}")
+
+
 def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
-                            rev, belowscore: int, device="cuda",
-                            gp: torch.Tensor | None = None):
+                            rev, belowscore: int,
+                            scores: XdropScores = XdropScores(),
+                            device="cuda", gp: torch.Tensor | None = None):
     """Exact xdrop of u = pool[u_off:+u_len] against v = pool[v_off:+v_len]
-    (both reversed when rev[i]). Returns int64 (ivalue, jvalue, score)."""
+    (both reversed when rev[i]) under `scores`. Returns int64 (ivalue,
+    jvalue, score)."""
     dev = resolve_device(device)
+    check_belowscore(belowscore, scores)
     N = int(np.asarray(u_off).size)
     if N == 0:
         z = np.zeros(0, np.int64)
@@ -90,13 +119,19 @@ def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
     v_off = np.asarray(v_off, np.int64)
     v_len = np.asarray(v_len, np.int64)
     rev = np.asarray(rev, bool)
+    sub, ins, dele, quantum, mat2 = scores.distances()
+    if (sub, ins, dele) != (1, 1, 1):
+        stats["scalar_lanes"] += N
+        return _host_exact(*pool_flanks(pool, u_off, u_len, v_off, v_len,
+                                        rev, range(N)), belowscore, scores)
     T = pool.size
     if gp is None:
         gp = upload_pool(pool, dev)
     desc = [torch.from_numpy(a).to(dev) for a in (
         np.where(rev, T - u_off - u_len, u_off), u_len,
         np.where(rev, T - v_off - v_len, v_off), v_len, rev)]
-    out, _ = xdrop_full(gp, *desc, belowscore, TIERS, D_BAND)
+    kq = dict(quantum=quantum, half=mat2 // 2)
+    out, _ = xdrop_full(gp, *desc, belowscore, TIERS, D_BAND, **kq)
     out = out.cpu().numpy().astype(np.int64)
     # unsafe at the last tier: clipped or capped there, or at the slot
     # edge (the result does not tell; a wider window leaves an edge lane
@@ -106,7 +141,7 @@ def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
         stats["wide_lanes"] += int(wide.size)
         sel = torch.from_numpy(wide).to(dev)
         out2, _ = xdrop_full(gp, *(a[sel] for a in desc), belowscore,
-                             WIDE_TIERS, D_BAND)
+                             WIDE_TIERS, D_BAND, **kq)
         out[:, wide] = out2.cpu().numpy()
         out[4, wide] += len(TIERS)
     iv, jv, sv = out[0], out[1], out[2]
@@ -125,11 +160,14 @@ def xdrop_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
         stats["host_lanes"] += int(redo.size)
         stats["host_symbols"] += int((u_len[redo] + v_len[redo]).sum())
         us, vs = pool_flanks(pool, u_off, u_len, v_off, v_len, rev, redo)
-        iv[redo], jv[redo], sv[redo] = _host_exact(us, vs, belowscore)
+        iv[redo], jv[redo], sv[redo] = _host_exact(us, vs, belowscore,
+                                                   scores)
     return iv, jv, sv
 
 
-def xdrop_extend_batch_exact(us, vs, belowscore: int, device="cuda"):
+def xdrop_extend_batch_exact(us, vs, belowscore: int,
+                             scores: XdropScores = XdropScores(),
+                             device="cuda"):
     """Array form: exact xdrop of us[i] against vs[i] (both forward)."""
     lens_u = np.asarray([len(u) for u in us], np.int64)
     lens_v = np.asarray([len(v) for v in vs], np.int64)
@@ -141,4 +179,4 @@ def xdrop_extend_batch_exact(us, vs, belowscore: int, device="cuda"):
     v_off = int(lens_u.sum()) + np.cumsum(lens_v) - lens_v
     return xdrop_extend_batch_pool(pool, u_off, lens_u, v_off, lens_v,
                                    np.zeros(len(us), bool), belowscore,
-                                   device=device)
+                                   scores, device=device)

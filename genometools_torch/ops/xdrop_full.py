@@ -3,12 +3,14 @@
 Replaces the Pallas kernel ``genometools_tpu/ops/xdrop_pallas.py``
 ``_make_kernel`` launched by ``_xdrop_pallas`` / ``xdrop_full_pallas``
 (``pl.pallas_call`` at xdrop_pallas.py:301): a whole xdrop extension
-(ref: xdrop.c:224-430, match 2, mismatch -1, indel -2, so
-EVAL(i+j, d) = i+j-3d). Generation 0 is the first lcp; each generation
-picks the candidate row with the DEL > MIS > INS priority, prunes cells
-more than belowscore below the best score dback = (belowscore+1)//3+1
-generations back, extends taken cells by their match runs and narrows
-the live window.
+(ref: xdrop.c:224-430) for scores whose unit distances are (1, 1, 1)
+(``XdropScores.distances()``): EVAL(i+j, d) = half*(i+j) - quantum*d,
+with quantum 3 and half 1 for seed_extend's match 2, mismatch -1, indel
+-2 and quantum 4, half 1 for ltrharvest's 2, -2, -3. Generation 0 is
+the first lcp; each generation picks the candidate row with the
+DEL > MIS > INS priority, prunes cells more than belowscore below the
+best score dback = (belowscore+half)//quantum+1 generations back,
+extends taken cells by their match runs and narrows the live window.
 
 Input: the uploaded pool (``ops/pool.py``) and per lane ustart, ulen,
 vstart, vlen, rev; window tiers ((W, GENS), ...). A lane runs in a
@@ -45,6 +47,7 @@ from .pool import (check_lanes, kernel_occupancy, launch_pool_kernel,
 
 SAFE, EDGE, CAP, CLIP = 0, 1, 2, 3       # why a lane is unsafe
 MAX_TIERS = 4
+RING_MAX = 64       # the kernel's score ring: dback <= 64
 
 launches = 0        # kernel launches (the CUDA path only)
 # the work of those launches, for the kernel's bound: candidate
@@ -60,14 +63,14 @@ def _run_extend(M: torch.Tensor, row: torch.Tensor, valid: torch.Tensor,
 
 
 def _xdrop_window(P: torch.Tensor, ulen: torch.Tensor, vlen: torch.Tensor,
-                  belowscore: int, W: int, D: int, gcap: int,
-                  counts: dict | None):
+                  belowscore: int, quantum: int, half: int, W: int, D: int,
+                  gcap: int, counts: dict | None):
     """One tier: the lanes' best (i, j, score) and reason, each (n, 1),
     in windows P (n, 6, W/32) of flanks of ulen, vlen (n, 1) symbols."""
     dev = P.device
     N = P.shape[0]
     K = 2 * D + 1
-    dback = (belowscore + 1) // 3 + 1
+    dback = (belowscore + half) // quantum + 1
     # slot s reads diagonal -(s - D): flip the greedy slot order
     M = match_words(P, W, D).flip(1)
     sidx = torch.arange(K, device=dev).view(1, K)
@@ -89,7 +92,7 @@ def _xdrop_window(P: torch.Tensor, ulen: torch.Tensor, vlen: torch.Tensor,
     lb = torch.where(finished0, 1, 0)
     ub = torch.where(finished0, -1, 0)
     row = torch.where(center, init_lcp, NEGINF)
-    best_i, best_j, best_s = init_lcp, init_lcp, 2 * init_lcp
+    best_i, best_j, best_s = init_lcp, init_lcp, 2 * half * init_lcp
     btq = best_s.expand(N, dback).clone()
     reason = torch.where(clip0, CLIP, SAFE)
     neg = torch.full((N, 1), NEGINF, dtype=torch.int64, device=dev)
@@ -118,8 +121,8 @@ def _xdrop_window(P: torch.Tensor, ulen: torch.Tensor, vlen: torch.Tensor,
         has = i_new >= 0
         j_new = i_new - kk
         tref = btq[:, 0:1]
-        pruned = (d > dback) & has & (i_new + j_new - 3 * d <
-                                      tref - belowscore)
+        pruned = (d > dback) & has & (half * (i_new + j_new) - quantum * d
+                                      < tref - belowscore)
         i_new = torch.where(pruned, NEGINF, i_new)
         has = i_new >= 0
         minuv = torch.minimum(ulen, vlen + kk)
@@ -140,7 +143,8 @@ def _xdrop_window(P: torch.Tensor, ulen: torch.Tensor, vlen: torch.Tensor,
             .any(dim=1, keepdim=True)
 
         j_ext = i_ext - kk
-        sc = torch.where(takes & active, i_ext + j_ext - 3 * d, NEGINF)
+        sc = torch.where(takes & active,
+                         half * (i_ext + j_ext) - quantum * d, NEGINF)
         scbest = sc.amax(dim=1, keepdim=True)
         fidx = first(sc == scbest)
         better = scbest > best_s
@@ -179,7 +183,8 @@ def _xdrop_window(P: torch.Tensor, ulen: torch.Tensor, vlen: torch.Tensor,
 
 def xdrop_full_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
                      belowscore: int, tiers, D: int,
-                     counts: dict | None = None) -> torch.Tensor:
+                     counts: dict | None = None, quantum: int = 3,
+                     half: int = 1) -> torch.Tensor:
     """Plain PyTorch version of K3 (same inputs and (5, N) result); every
     lane's window at a tier is the tier's W (the kernel rounds a lane's
     flanks up to 32 within it: the same result). counts, when a dict,
@@ -196,7 +201,7 @@ def xdrop_full_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
                           vlen[todo], rev[todo], W)
         bi, bj, bs, reason = _xdrop_window(
             P, ulen[todo].view(-1, 1), vlen[todo].view(-1, 1), belowscore,
-            W, D, gens_cap(GENS), counts)
+            quantum, half, W, D, gens_cap(GENS), counts)
         out[:, todo] = torch.cat([bi, bj, bs, (reason != SAFE).long(),
                                   torch.full_like(bi, t)], dim=1).T
         retry = ((reason == CLIP) | (reason == CAP)).view(-1)
@@ -204,34 +209,49 @@ def xdrop_full_plain(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
     return out.to(torch.int32)
 
 
-def _check_tiers(tiers, D, belowscore):
+def max_belowscore(quantum: int = 3, half: int = 1) -> int:
+    """The largest belowscore whose dback fits the kernel's ring."""
+    return RING_MAX * quantum - half - 1
+
+
+def _check_tiers(tiers, D, belowscore, quantum=3, half=1):
     if not 1 <= len(tiers) <= MAX_TIERS or not 1 <= D <= 143 or \
             any(W % 32 or W <= 0 or G < 0 for W, G in tiers) or \
             [W for W, _ in tiers] != sorted(W for W, _ in tiers):
         raise ValueError(f"unsupported tiers {tiers} D={D}")
-    if not 0 <= belowscore <= 188:
-        raise ValueError(f"belowscore {belowscore} out of range [0, 188]")
+    if quantum < 1 or half < 1:
+        raise ValueError(f"unsupported quantum {quantum}, half {half}")
+    top = max_belowscore(quantum, half)
+    if not 0 <= belowscore <= top:
+        raise ValueError(f"belowscore {belowscore} out of range [0, {top}] "
+                         f"at quantum {quantum}, half {half}")
 
 
-def _conf(tiers, D: int, belowscore: int) -> list:
+def _conf(tiers, D: int, belowscore: int, quantum: int = 3,
+          half: int = 1) -> list:
     pad = [0] * (MAX_TIERS - len(tiers))
     return [len(tiers), *(W for W, _ in tiers), *pad,
-            *(gens_cap(G) for _, G in tiers), *pad, D, belowscore]
+            *(gens_cap(G) for _, G in tiers), *pad, D, belowscore, quantum,
+            half]
 
 
 def xdrop_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
-               belowscore: int, tiers, D: int = 32):
+               belowscore: int, tiers, D: int = 32, quantum: int = 3,
+               half: int = 1):
     """K3 on the pool's device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Returns the (5, N) int32 result and
-    the candidate slot-generations, (1,) int64, both on that device."""
+    plain version for CPU tensors. The score is half*(i+j) - quantum*d
+    (``XdropScores.distances()`` of unit-distance scores). Returns the
+    (5, N) int32 result and the candidate slot-generations, (1,) int64,
+    both on that device."""
     global launches
     tiers = tuple((int(W), int(G)) for W, G in tiers)
-    _check_tiers(tiers, D, belowscore)
+    _check_tiers(tiers, D, belowscore, quantum, half)
     desc = (ustart, ulen, vstart, vlen, rev)
     check_lanes(gp, desc)
     if gp.device.type == "cpu":
         cnt = {}
-        out = xdrop_full_plain(gp, *desc, belowscore, tiers, D, counts=cnt)
+        out = xdrop_full_plain(gp, *desc, belowscore, tiers, D, counts=cnt,
+                               quantum=quantum, half=half)
         return out, torch.tensor([cnt.get("slot_gens", 0)])
     if gp.device.type != "cuda":
         raise ValueError(f"unsupported device {gp.device}")
@@ -240,7 +260,8 @@ def xdrop_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
     if N == 0:
         return out, torch.zeros(1, dtype=torch.int64, device=gp.device)
     slot_gens = launch_pool_kernel("gt_xdrop_full", gp, desc,
-                                   _conf(tiers, D, belowscore), out)
+                                   _conf(tiers, D, belowscore, quantum,
+                                         half), out)
     launches += 1
     work["slot_gens"] += int(slot_gens)
     work["bytes"] += gp.numel() * 8 + 33 * N + out.numel() * 4

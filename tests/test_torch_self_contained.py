@@ -2,9 +2,11 @@
 chip_smoke.py, imports the reference package or JAX, and the port's
 suffixerator (in memory and with -parts), suffixerator_e2e, seed_extend
 (with -parts, -maxmat and -estim), repfind, tallymer mkindex|search,
-readjoiner prefilter|overlap|assembly and genomediff run in a process
-where both are blocked, printing what the reference's CLI prints for the
-same arguments and writing the same files."""
+readjoiner prefilter|overlap|assembly, genomediff, ltrharvest, tirvish,
+ltrclustering, packedindex mkindex, prebwt, tagerator (-esa and -pck),
+mergeesa and sain run in a process where both are blocked, printing
+what the reference's CLI prints for the same arguments and writing the
+same files."""
 
 import ast
 import contextlib
@@ -19,6 +21,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden_esa"
 READS = ROOT / "tests" / "golden_readjoiner_red" / "reads.fna"
+TAGS = ROOT / "tests" / "golden_tagerator" / "tags.fna"
 BLOCKED = ("jax", "genometools_tpu")
 
 
@@ -68,10 +71,40 @@ COMMANDS = [
     ["readjoiner", "overlap", "-readset", "rj", "-l", "45"],
     ["readjoiner", "assembly", "-readset", "rj", "-l", "45"],
     ["genomediff", "in.fa", "in2.fa"],
+    ["suffixerator", "-db", "ltr.fa", "-indexname", "ltr", "-suf", "-lcp",
+     "-tis", "-des", "-sds", "-ssp"],
+    ["ltrharvest", "-index", "ltr", "-longoutput"],
+    ["ltrharvest", "-index", "ltr", "-gff3", "-seqids", "-out", "lh.fas",
+     "-outinner", "lh.inner.fas"],
+    ["ltrharvest", "-index", "ltr", "-gff3", "lh.gff3", "-tabout", "no"],
+    ["tirvish", "-index", "ltr"],
+    ["ltrclustering", "-psmall", "80", "-plarge", "30", "ltr", "lh.gff3"],
+    ["packedindex", "mkindex", "-db", "in.fa", "-indexname", "pck"],
+    ["prebwt", "-pck", "pck", "-maxdepth", "3"],
+    ["tagerator", "-q", "tags.fna", "-esa", "idx", "-e", "1"],
+    ["tagerator", "-q", "tags.fna", "-pck", "idx", "-e", "1", "-best"],
+    ["mergeesa", "-indexname", "mrg", "-ii", "idx", "ltr"],
+    ["sain", "-esa", "idx", "-check", "-suf", "-indexname", "sn"],
 ]
 # files the commands write: the reference writes its own under _ref names
 WRITTEN = {"tyr": ("mer", "mct", "tyr.json"),
-           "rj": ("reads.npz", "spm", "contigs.fas")}
+           "rj": ("reads.npz", "spm", "contigs.fas"),
+           "pck": ("fmi.json", "pbt"),
+           "mrg": ("suf", "lcp", "prj"),
+           "sn": ("suf",)}
+# files named whole on the command line, written or read under _ref names
+FILES = ("lh.fas", "lh.inner.fas", "lh.gff3")
+# tools whose output is files only
+QUIET = ("readjoiner", "prebwt", "sain", "packedindex", "mergeesa")
+
+
+def _ref_arg(a: str) -> str:
+    if a in WRITTEN:
+        return a + "_ref"
+    if a in FILES:
+        stem, dot, ext = a.partition(".")
+        return f"{stem}_ref{dot}{ext}"
+    return a
 
 
 def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
@@ -88,6 +121,12 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
                 f.write(b">" + enc.descs[s].encode("latin-1") + b"\n")
                 f.write(lut[np.where(c < 4, c, 4)].tobytes() + b"\n")
     (tmp_path / "reads.fna").write_bytes(READS.read_bytes())
+    (tmp_path / "tags.fna").write_bytes(TAGS.read_bytes())
+    from genometools_torch.utils.synthetic import (planted_transposons,
+                                                   write_fasta)
+    write_fasta(planted_transposons(seed=3, nseq=2, length=40000, ltr=2,
+                                    tir=2, wildcard_runs=2)[0],
+                tmp_path / "ltr.fa", "chr")
     script = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED) +
@@ -121,14 +160,19 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
             with contextlib.redirect_stdout(buf), \
                     contextlib.redirect_stderr(io.StringIO()):
                 # readjoiner's parsers take no --cpu
-                ref_main([a + "_ref" if a in WRITTEN else a for a in argv]
+                ref_main([_ref_arg(a) for a in argv]
                          + ([] if argv[0] == "readjoiner" else ["--cpu"]))
             assert text == buf.getvalue(), argv
-            assert text or argv[0] == "readjoiner" or "-indexname" in argv
+            assert text or argv[0] in QUIET or "-indexname" in argv or \
+                "-tabout" in argv
     finally:
         os.chdir(cwd)
     for name, exts in WRITTEN.items():
         for ext in exts:
             assert (tmp_path / f"{name}.{ext}").read_bytes() == \
                 (tmp_path / f"{name}_ref.{ext}").read_bytes(), (name, ext)
+    for name in FILES:
+        assert (tmp_path / name).read_bytes() == \
+            (tmp_path / _ref_arg(name)).read_bytes(), name
+    assert b"LTR_retrotransposon" in (tmp_path / "lh.gff3").read_bytes()
     assert b"contig_0" in (tmp_path / "rj.contigs.fas").read_bytes()

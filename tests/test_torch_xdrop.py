@@ -215,6 +215,107 @@ def test_array_batch_matches_scalar():
         assert (iv[t], jv[t], sv[t]) == (b.ivalue, b.jvalue, b.score), t
 
 
+# (scores, quantum, half, belowscore): ltrharvest's and tirvish's default
+# scores (quantum 4), doubled (quantum 8, half 2), each at a small
+# belowscore and at the largest the kernel's ring takes
+QSCORES = [((2, -2, -3, -3), 4, 1, 5), ((2, -2, -3, -3), 4, 1, 254),
+           ((4, -4, -6, -6), 8, 2, 9), ((4, -4, -6, -6), 8, 2, 509)]
+
+
+@pytest.mark.parametrize("case", QSCORES)
+def test_plain_quantum_matches_scalar(case):
+    """xdrop_full_plain at another quantum and half equals the scalar
+    engine with those scores lane by lane (the lanes it calls safe), and
+    the batch equals it on every lane; one above the ring bound raises."""
+    from genometools_tpu.ops.xdrop import XdropScores, xdrop_extend
+    sc, quantum, half, bs = case
+    scores = XdropScores(*sc)
+    assert scores.distances() == (1, 1, 1, quantum, 2 * half)
+    assert bs <= txf.max_belowscore(quantum, half)
+    rng = np.random.default_rng(quantum + bs)
+    us, vs = _tasks(rng, 40, 300, 0.85)
+    a, b = _case("reaches_clip", rng, 8)
+    us, vs = us + a, vs + b
+    gp, desc = _lanes(us, vs, 0, rng.integers(0, 2, len(us)))
+    tiers = ((128, 128), (1024, 1024))
+    out, _ = txf.xdrop_full(gp, *desc[:5], bs, tiers, 16, quantum=quantum,
+                            half=half)
+    out = out.numpy()
+    safe = np.flatnonzero(out[3] == 0)
+    assert safe.size > 0
+    for i in safe:
+        ref = xdrop_extend(us[i], vs[i], bs, scores)
+        assert tuple(int(x) for x in out[:3, i]) == \
+            (ref.ivalue, ref.jvalue, ref.score), i
+    with pytest.raises(ValueError):
+        txf.xdrop_full(gp, *desc[:5], txf.max_belowscore(quantum, half) + 1,
+                       tiers, 16, quantum=quantum, half=half)
+    from genometools_torch.ops.xdrop import XdropScores as TScores
+    txb.reset_stats()
+    iv, jv, sv = txb.xdrop_extend_batch_exact(us, vs, bs, TScores(*sc),
+                                              device="cpu")
+    assert txb.stats["kernel_lanes"] + txb.stats["host_lanes"] == len(us)
+    for i, (u, v) in enumerate(zip(us, vs)):
+        ref = xdrop_extend(u, v, bs, scores)
+        assert (iv[i], jv[i], sv[i]) == (ref.ivalue, ref.jvalue,
+                                         ref.score), i
+
+
+def test_batch_non_unit_scores_take_scalar_route():
+    """Scores whose unit distances are not (1, 1, 1) (tirvish -mis -1)
+    run every lane on the scalar engine, equal to the reference's."""
+    from genometools_tpu.ops.xdrop import XdropScores, xdrop_extend
+    from genometools_torch.ops.xdrop import XdropScores as TScores
+    sc = (2, -1, -3, -3)
+    assert XdropScores(*sc).distances()[:3] != (1, 1, 1)
+    rng = np.random.default_rng(41)
+    us, vs = _tasks(rng, 24, 150, 0.85)
+    txb.reset_stats()
+    iv, jv, sv = txb.xdrop_extend_batch_exact(us, vs, 5, TScores(*sc),
+                                              device="cpu")
+    assert txb.stats["scalar_lanes"] == len(us)
+    assert txb.stats["kernel_lanes"] == 0
+    for i, (u, v) in enumerate(zip(us, vs)):
+        ref = xdrop_extend(u, v, 5, XdropScores(*sc))
+        assert (iv[i], jv[i], sv[i]) == (ref.ivalue, ref.jvalue,
+                                         ref.score), i
+
+
+# (scores, the largest belowscore K3's ring takes at their quantum)
+RING = [((2, -1, -2, -2), 190), ((2, -2, -3, -3), 254),
+        ((4, -4, -6, -6), 509)]
+
+
+@pytest.mark.parametrize("case", RING)
+def test_batch_refuses_belowscore_beyond_ring(case):
+    """Unit-distance scores go to K3, which takes no belowscore beyond
+    its ring: the batch raises there, with lanes or without, and sends
+    no lane to the host; non-unit scores take the scalar route at any
+    belowscore."""
+    from genometools_tpu.ops.xdrop import XdropScores, xdrop_extend
+    from genometools_torch.ops.xdrop import XdropScores as TScores
+    sc, top = case
+    q, m2 = TScores(*sc).distances()[3:]
+    assert txf.max_belowscore(q, m2 // 2) == top
+    rng = np.random.default_rng(top)
+    us, vs = _tasks(rng, 8, 100, 0.85)
+    txb.reset_stats()
+    for lanes in ((us, vs), ([], [])):
+        with pytest.raises(ValueError):
+            txb.xdrop_extend_batch_exact(*lanes, top + 1, TScores(*sc),
+                                         device="cpu")
+    assert txb.stats["scalar_lanes"] == txb.stats["host_lanes"] == 0
+    wide = (sc[0], sc[1] + 1, sc[2], sc[3])
+    assert TScores(*wide).distances()[:3] != (1, 1, 1)
+    iv, jv, sv = txb.xdrop_extend_batch_exact(us, vs, top + 1,
+                                              TScores(*wide), device="cpu")
+    assert txb.stats["scalar_lanes"] == len(us)
+    for i, (u, v) in enumerate(zip(us, vs)):
+        ref = xdrop_extend(u, v, top + 1, XdropScores(*wide))
+        assert (iv[i], jv[i], sv[i]) == (ref.ivalue, ref.jvalue,
+                                         ref.score), i
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -257,3 +358,29 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
         assert int((taken & ((desc[1] - desc[3]).abs() > 32)).sum()) > 0
     else:
         assert int(plain[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QSCORES[:3])
+def test_cuda_kernel_quantum_matches_plain(cuda_device, case):
+    """K3 at another quantum and half against its plain version, on the
+    main path's tiers and band, with lanes of every kind."""
+    _, quantum, half, bs = case
+    rng = np.random.default_rng(quantum + bs)
+    us, vs = _tasks(rng, 4000, 250, 0.85)
+    for name in ("dies_before_clip", "reaches_clip", "offband",
+                 "slot_edge"):
+        a, b = _case(name, rng, 500)
+        us += a
+        vs += b
+    gp, desc = _lanes(us, vs, 0, rng.integers(0, 2, len(us)),
+                      device=cuda_device)
+    cnt = {}
+    kq = dict(quantum=quantum, half=half)
+    plain = txf.xdrop_full_plain(gp, *desc[:5], bs, txb.TIERS, txb.D_BAND,
+                                 counts=cnt, **kq)
+    kern, slot_gens = txf.xdrop_full(gp, *desc[:5], bs, txb.TIERS,
+                                     txb.D_BAND, **kq)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, kern)
+    assert int(slot_gens) == cnt["slot_gens"]
