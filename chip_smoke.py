@@ -137,6 +137,25 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      the host backward search (CUDA events); prebwt -maxdepth 8 against
      one host backward search per code; mergeesa of at1MB and Atinsert against host
      SA-IS + Kasai over the concatenation; sain -check on at1MB.
+  18. the multi-device layer (genometools_torch/parallel) on a mesh of
+     eight shards of the card: the sharded suffix array of phase 4's
+     32 Mbp genome by the sample-sort engine (8 shards and 1, its
+     overflow flag 0), the bitonic engine and the int64 lanes (8 shards
+     and 1), each equal to the packed pipeline's; build_suffix_array's
+     wide route on 2^28 non-canonical keys (UNDEFCHAR runs), held by the
+     certificate, with its sort and host Kasai seconds and peak device
+     memory; sharded_suffix_sort (as deep as at1MB's largest lcp),
+     sharded_kmer_histogram and distributed_build_sa of at1MB against
+     phase 3's SA; distributed_seed_extend -parts 3 over 4 lanes, greedy
+     then xdrop, equal to phase 11's lines, K1 and K3 launched on every
+     lane (the launches a lane printed); sharded_mer_counts at 32 Mbp,
+     k = 15, against torch.unique on the card; distributed_find_spms on
+     g4m reads at 5x (-l 45, no transitive filter) against find_spms;
+     distributed_maxpairs of at1MB at -l 14 against enumerate_maxpairs;
+     `suffixerator -dist 8` (the goldens; one card is the one-shard
+     route) and `seed_extend -dist 4 -parts 3` (phase 11's lines); then
+     dryrun_multichip(8, "cuda"). The kernels' launches in its grid and
+     -dist runs are added to the main paths' in the kernels line.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -789,8 +808,9 @@ def run_cli(cli, argv) -> tuple[list[str], float]:
     return buf.getvalue().splitlines(), time.perf_counter() - t0
 
 
-def phase_grid(cli, dev, se_lines: dict, smi: str) -> None:
-    """Phase 11: the -parts 3 grid on the phase-3 index (cwd)."""
+def phase_grid(cli, dev, se_lines: dict, smi: str) -> dict:
+    """Phase 11: the -parts 3 grid on the phase-3 index (cwd); returns
+    the CLI's lines by extension."""
     from genometools_torch.index.esa import Encseq
     from genometools_torch.match.seed_extend import (SeedExtendParams,
                                                      seed_extend,
@@ -798,6 +818,7 @@ def phase_grid(cli, dev, se_lines: dict, smi: str) -> None:
     at1 = Encseq.load("idx")
     ranges = sequence_ranges(at1, 3)
     log(f"at1MB in 3 parts: sequence ranges {ranges}")
+    grid = {}
     for flag, ext in (("-extendgreedy", "greedy"), ("-extendxdrop", "xdrop")):
         reset_counts()
         lines, dt = run_cli(cli, ["seed_extend", "-ii", "idx", "-l", "14",
@@ -806,6 +827,7 @@ def phase_grid(cli, dev, se_lines: dict, smi: str) -> None:
             f"{dt:.3f}s [{smi}]; {route_counts()}")
         if sorted(lines) != sorted(se_lines[ext]) or not lines:
             raise SystemExit(f"-parts 3 {flag} differs from phase 6's lines")
+        grid[ext] = lines
         p = SeedExtendParams(minidentity=90, userdefinedleastlength=14,
                              extension=ext, parts=3)
         t0 = time.perf_counter()
@@ -831,6 +853,7 @@ def phase_grid(cli, dev, se_lines: dict, smi: str) -> None:
                                  "the -parts 3 lines")
     log("grid: -parts 3 sorted equals phase 6, the fused grid equals the "
         "wave grid, the -pick cells equal -parts 3")
+    return grid
 
 
 def host_esa_build():
@@ -1593,6 +1616,253 @@ def phase_packed(cli, work: Path, dev, smi: str) -> None:
         f"{err.getvalue().strip()}")
 
 
+MESH_SHARDS = 8
+MESH_WIDE_N = 2 ** 28           # phase 18's wide keys, sentinel included
+
+
+def mesh_wide_keys(n: int, dev) -> torch.Tensor:
+    """n int32 keys that are not canonical: n - 1 random ACGT symbols
+    (torch.Generator seed 2028 on the card) with 4,096 runs of 1 to
+    1,000 UNDEFCHAR keys (253, the same key at every position), the
+    sentinel (4 + n - 1) last."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2028)
+    keys = torch.randint(0, 4, (n,), generator=g, dtype=torch.int32,
+                         device=dev)
+    starts = torch.randint(0, n - 1001, (4096,), generator=g, device=dev)
+    lens = torch.randint(1, 1001, (4096,), generator=g, device=dev)
+    mark = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(4096, dtype=torch.int32, device=dev)
+    mark.index_add_(0, starts, ones)
+    mark.index_add_(0, starts + lens, -ones)
+    keys[torch.cumsum(mark, 0)[:n] > 0] = 253
+    keys[n - 1] = 4 + n - 1
+    return keys
+
+
+def synced(fn):
+    """(seconds on the host clock, fn()) with the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_mesh(cli, work: Path, dev, smi: str, grid_lines: dict) -> dict:
+    """Phase 18: the multi-device layer on a mesh of MESH_SHARDS shards of
+    the card (cwd: the phase-3 index); returns the kernels' launches in
+    its distributed grid and the -dist CLI run."""
+    from genometools_torch import _kernels
+    from genometools_torch.assembly import readjoiner as rj
+    from genometools_torch.index import suffix
+    from genometools_torch.index.esa import Encseq, build_esa, dist_mesh
+    from genometools_torch.match.maxpairs import enumerate_maxpairs
+    from genometools_torch.match.seed_extend import SeedExtendParams
+    from genometools_torch.ops import greedy_full as gf
+    from genometools_torch.ops import greedy_resident as gr
+    from genometools_torch.ops import xdrop_full as xf
+    from genometools_torch.ops.kmer import kmer_codes64
+    from genometools_torch.parallel import dist_doubling_sharded as dds
+    from genometools_torch.parallel.dist_doubling import distributed_build_sa
+    from genometools_torch.parallel.dist_esa import (sharded_kmer_histogram,
+                                                     sharded_suffix_sort)
+    from genometools_torch.parallel.dist_maxpairs import distributed_maxpairs
+    from genometools_torch.parallel.dist_readjoiner import (
+        distributed_find_spms, sharded_spm_candidate_count)
+    from genometools_torch.parallel.dist_seed_grid import \
+        distributed_seed_extend
+    from genometools_torch.parallel.dist_tallymer import sharded_mer_counts
+    from genometools_torch.parallel.dryrun import dryrun_multichip
+    from genometools_torch.parallel.mesh import Mesh, gather
+    mesh = Mesh([dev] * MESH_SHARDS)
+    one = Mesh([dev])
+    log(f"mesh: {mesh}; the single-shard mesh: {one}")
+
+    # 18.1 the sharded suffix sort at 32 Mbp against the packed pipeline
+    big = Encseq.from_files([str(work / "big.fna")])
+    keys = big.suffix_keys()
+    kd = torch.from_numpy(keys).to(dev)
+    n1 = keys.size
+    dt, packed = synced(lambda: suffix.build_suffix_array(
+        kd, with_lcp=False, device=dev)[0])
+    packed = packed.cpu().numpy()
+    log(f"32 Mbp: {n1} suffixes; packed pipeline {dt:.3f}s")
+    npad = -(-n1 // MESH_SHARDS) * MESH_SHARDS
+    kp = torch.cat([kd, int(kd.max()) + 1 + torch.arange(
+        npad - n1, dtype=torch.int32, device=dev)])
+    for label, m, k, n in (("8 shards", mesh, kp, npad),
+                           ("1 shard", one, kd, n1)):
+        torch.cuda.reset_peak_memory_stats()
+        dt, (sa, ovf) = synced(lambda: dds.sharded_build_sa_sample(k, n, m))
+        same = np.array_equal(gather(sa)[:n1].cpu().numpy(), packed)
+        log(f"sample-sort engine, int32 lanes, {label}: {dt:.3f}s "
+            f"[{smi}]; overflow flag {ovf}; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes; SA "
+            f"{'equals' if same else 'DIFFERS FROM'} the packed pipeline's")
+        if ovf or not same:
+            raise SystemExit(f"the sample-sort engine ({label}) failed")
+        del sa
+    for label, kw, m in (("bitonic engine, 8 shards", {"engine": "bitonic"},
+                          mesh),
+                         ("int64 lanes, 8 shards", {"lanes": "int64"}, mesh),
+                         ("int64 lanes, 1 shard", {"lanes": "int64"}, one)):
+        dt, sa = synced(lambda: dds.sharded_suffix_array(kd, m, **kw))
+        log(f"sharded_suffix_array, {label}: {dt:.3f}s [{smi}] ({sa.dtype})")
+        if not np.array_equal(sa, packed):
+            raise SystemExit(f"sharded_suffix_array ({label}) differs from "
+                             "the packed pipeline")
+    log("32 Mbp: every sharded SA equals the packed pipeline's")
+    del kd, kp, packed
+    torch.cuda.empty_cache()
+
+    # 18.2 the wide route through build_suffix_array
+    wk = mesh_wide_keys(MESH_WIDE_N, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trace = {}
+    dt, (sa, lcp) = synced(lambda: suffix.build_suffix_array(
+        wk, device=dev, engine="wide", trace=trace))
+    peak = torch.cuda.max_memory_allocated()
+    nund = int((wk == 253).sum())
+    log(f"wide route: {MESH_WIDE_N} non-canonical keys ({nund} UNDEFCHAR) "
+        f"in {dt:.3f}s [{smi}]: the int64 sample-sort engine on one shard "
+        f"{trace['sort_s']:.3f}s, host Kasai {trace['kasai_s']:.3f}s; peak "
+        f"device memory {peak} bytes ({peak / MESH_WIDE_N:.1f} bytes a "
+        f"position, the keys' included); max lcp {int(lcp.max())}")
+    t0 = time.perf_counter()
+    ok = suffix.check_sa_lcp(wk, sa, lcp)
+    log(f"certificate (check_sa_lcp): {'passed' if ok else 'FAILED'} in "
+        f"{time.perf_counter() - t0:.3f}s")
+    if trace["engine"] != "wide" or not ok:
+        raise SystemExit("the wide route failed")
+    del wk, sa, lcp
+    torch.cuda.empty_cache()
+
+    # 18.3 the smaller sorts on at1MB against phase 3's SA
+    at1 = Encseq.load("idx")
+    keys1 = at1.suffix_keys()
+    m1 = keys1.size
+    ref_sa = np.fromfile("idx.suf", np.uint64).astype(np.int64)
+    esa = build_esa(at1, device=dev)
+    depth = int(esa.lcptab.max()) + 1
+    dt, (sa, hist) = synced(lambda: sharded_suffix_sort(keys1, m1, depth,
+                                                        mesh))
+    want_hist = np.bincount(np.minimum(keys1, 4), minlength=5)
+    log(f"sharded_suffix_sort at1MB, {depth} symbols deep: {dt:.3f}s "
+        f"[{smi}]; histogram {hist.tolist()}")
+    dt2, hist2 = synced(lambda: sharded_kmer_histogram(keys1, m1, mesh))
+    mpad = -(-m1 // MESH_SHARDS) * MESH_SHARDS
+    kp1 = np.concatenate([keys1, keys1.max() + 1 + np.arange(
+        mpad - m1, dtype=np.int32)])
+    dt3, sa3 = synced(lambda: distributed_build_sa(kp1, mpad, mesh))
+    log(f"sharded_kmer_histogram {dt2:.3f}s; distributed_build_sa "
+        f"{dt3:.3f}s [{smi}]")
+    if not (np.array_equal(sa.cpu().numpy(), ref_sa)
+            and np.array_equal(sa3.cpu().numpy()[:m1], ref_sa)
+            and hist.tolist() == hist2.tolist() == want_hist.tolist()):
+        raise SystemExit("a sharded sort of at1MB differs from phase 3's")
+    log("at1MB: sharded_suffix_sort and distributed_build_sa equal phase "
+        "3's SA, the histograms the host's")
+
+    # 18.4 the distributed grid: K1 and K3 on every lane
+    lanes4 = [dev] * 4
+    launches = {"K1": 0, "K2r": 0, "K3": 0}
+    for ext, kname in (("greedy", "greedy_full"), ("xdrop", "xdrop_full")):
+        p = SeedExtendParams(minidentity=90, userdefinedleastlength=14,
+                             extension=ext, parts=3)
+        reset_counts()
+        _kernels.lane_launches.clear()
+        dt, ms = synced(lambda: distributed_seed_extend(at1, None, p,
+                                                        devices=lanes4))
+        per_lane = {lane: _kernels.lane_launches.get((lane, kname), 0)
+                    for lane in range(len(lanes4))}
+        launches["K1"] += gf.launches
+        launches["K2r"] += gr.launches
+        launches["K3"] += xf.launches
+        lines = [m.line() for m in ms]
+        log(f"distributed_seed_extend {ext} -parts 3 over 4 lanes of {dev}: "
+            f"{len(lines)} matches in {dt:.3f}s [{smi}]; {route_counts()}; "
+            f"{kname} launches per lane {per_lane}; all launches by lane "
+            f"{dict(sorted(_kernels.lane_launches.items()))}")
+        if lines != grid_lines[ext]:
+            raise SystemExit(f"distributed_seed_extend {ext} differs from "
+                             "phase 11's lines")
+        if min(per_lane.values()) == 0:
+            raise SystemExit(f"{kname} did not launch on every lane")
+
+    # 18.5 tallymer's counts, readjoiner's overlaps, maximal pairs
+    dt, (code, valid) = synced(lambda: kmer_codes64(big.codes, 15,
+                                                    device=dev))
+    code = code[valid]
+    dt1, (uq, cnt) = synced(lambda: torch.unique(code, return_counts=True))
+    codes_h = code.cpu().numpy()
+    dt2, (mers, counts) = synced(lambda: sharded_mer_counts(codes_h, 15,
+                                                            mesh))
+    log(f"sharded_mer_counts 32 Mbp k=15: {codes_h.size} codes, "
+        f"{mers.size} mers in {dt2:.3f}s [{smi}]; the card's torch.unique "
+        f"{dt1:.3f}s")
+    if not (np.array_equal(mers, uq.cpu().numpy())
+            and np.array_equal(counts, cnt.cpu().numpy())):
+        raise SystemExit("sharded_mer_counts differs from torch.unique")
+    del code, valid, uq, cnt
+    rows = g4m_reads(5)[0]
+    rs = rj.ReadSet(blob=rows.reshape(-1), lens=np.full(rows.shape[0], 100))
+    dtc, cand = synced(lambda: sharded_spm_candidate_count(rs, 45, mesh))
+    dt, got = synced(lambda: distributed_find_spms(rs, 45, mesh,
+                                                   irreducible=False))
+    t0 = time.perf_counter()
+    want = rj.find_spms(rs, 45, irreducible=False)
+    dts = time.perf_counter() - t0
+    log(f"distributed_find_spms: {rs.num_reads} reads of 100 bp (g4m at 5x)"
+        f", -l 45, no transitive filter: {cand} candidates counted in "
+        f"{dtc:.3f}s, {got.length.size} SPMs in {dt:.3f}s [{smi}]; "
+        f"find_spms {dts:.3f}s")
+    if not all(np.array_equal(getattr(got, f), getattr(want, f)) for f in
+               ("suf_read", "suf_strand", "pref_read", "pref_strand",
+                "length")):
+        raise SystemExit("distributed_find_spms differs from find_spms")
+    dt, mp = synced(lambda: distributed_maxpairs(esa, 14, devices=mesh))
+    t0 = time.perf_counter()
+    mp1 = enumerate_maxpairs(esa, 14)
+    log(f"distributed_maxpairs at1MB -l 14: {mp.count} pairs in {dt:.3f}s "
+        f"over {MESH_SHARDS} lanes; enumerate_maxpairs "
+        f"{time.perf_counter() - t0:.3f}s")
+    if not all(np.array_equal(getattr(mp, f), getattr(mp1, f))
+               for f in ("pos1", "pos2", "length")):
+        raise SystemExit("distributed_maxpairs differs")
+
+    # 18.6 the CLI's -dist
+    _, dt = run_cli(cli, ["suffixerator", "-db", "at1MB.fna", "-indexname",
+                          "dist8", "-suf", "-lcp", "-tis", "-dist", "8"])
+    log(f"suffixerator -dist 8: {dt:.3f}s; {torch.cuda.device_count()} "
+        f"card(s), so the mesh has {dist_mesh(8, dev).size} shard(s): "
+        + ("the one-shard route (build_suffix_array on the card)"
+           if dist_mesh(8, dev).size == 1 else "the sharded engine"))
+    for ext in ("suf", "lcp", "llv", "prj"):
+        if (work / f"dist8.{ext}").read_bytes() != golden_bytes("at1MB",
+                                                                 ext):
+            raise SystemExit(f"suffixerator -dist 8 .{ext} differs from the "
+                             "golden")
+    reset_counts()
+    lines, dt = run_cli(cli, ["seed_extend", "-ii", "idx", "-l", "14",
+                              "-minidentity", "90", "-extendgreedy",
+                              "-dist", "4", "-parts", "3"])
+    launches["K1"] += gf.launches
+    launches["K2r"] += gr.launches
+    launches["K3"] += xf.launches
+    log(f"seed_extend -dist 4 -parts 3: {len(lines)} matches in {dt:.3f}s "
+        f"[{smi}]; {route_counts()}")
+    if lines != grid_lines["greedy"]:
+        raise SystemExit("seed_extend -dist 4 -parts 3 differs from phase "
+                         "11's lines")
+
+    # 18.7 the dry run
+    dt, _ = synced(lambda: dryrun_multichip(MESH_SHARDS, "cuda"))
+    log(f"dryrun_multichip: {dt:.3f}s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -2093,7 +2363,7 @@ def main() -> int:
         phase_wide(dev, smi)
 
     with Phase("11 seed_extend -parts 3 grid on at1MB"):
-        phase_grid(cli, dev, se_lines, smi)
+        grid_lines = phase_grid(cli, dev, se_lines, smi)
 
     with Phase("12 repfind on at1MB and g4m"):
         phase_repfind(cli, dev, g4m, smi, kernels["K3"])
@@ -2112,6 +2382,10 @@ def main() -> int:
 
     with Phase("17 packedindex, tagerator, prebwt, mergeesa, sain"):
         phase_packed(cli, work, dev, smi)
+
+    with Phase("18 mesh: the multi-device layer on 8 shards of the card"):
+        for kid, n in phase_mesh(cli, work, dev, smi, grid_lines).items():
+            launches[kid] += n
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

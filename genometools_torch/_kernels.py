@@ -17,7 +17,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -28,6 +30,11 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-lineinfo"]
 
 _lib = None
+_lib_lock = threading.Lock()       # one build and load, whichever thread
+_count_lock = threading.Lock()
+_tls = threading.local()
+# launches by (lane tag, kernel module), for launches made inside lane()
+lane_launches: dict = {}
 build_seconds = 0.0      # wall time of the last build (0 = cached)
 # nvcc's output of the build in use (-Xptxas -v report), kept beside the
 # library and read back when the library is cached
@@ -100,10 +107,18 @@ def _build() -> Path:
 
 
 def lib():
-    """The loaded kernel library (built on first call)."""
-    global _lib
+    """The loaded kernel library (built on first call; threads that ask
+    meanwhile wait for that build)."""
     if _lib is not None:
         return _lib
+    with _lib_lock:
+        if _lib is None:
+            _load()
+    return _lib
+
+
+def _load() -> None:
+    global _lib
     so = _build()
     L = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -137,7 +152,6 @@ def lib():
     L.gt_cuda_error_string.argtypes = [ci]
     L.gt_cuda_error_string.restype = ctypes.c_char_p
     _lib = L
-    return _lib
 
 
 def check(err: int, what: str) -> None:
@@ -150,3 +164,48 @@ def check(err: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def call(fn: str, device, *args) -> None:
+    """Launch the library's `fn` on `device`'s card with args and the
+    calling thread's current stream of that card; raise on an error."""
+    import torch
+    with torch.cuda.device(device):
+        err = getattr(lib(), fn)(*args, stream_ptr(device))
+    check(err, fn)
+
+
+def record_launch(mod_globals: dict, slot_gens: int = 0,
+                  nbytes: int = 0) -> None:
+    """Count one launch of a kernel wrapper (its module's `launches`, and
+    `work` where it has one), and the lane's, under one lock: lanes on
+    several threads lose no increment."""
+    with _count_lock:
+        mod_globals["launches"] += 1
+        if "work" in mod_globals:
+            mod_globals["work"]["slot_gens"] += int(slot_gens)
+            mod_globals["work"]["bytes"] += int(nbytes)
+        tag = getattr(_tls, "lane", None)
+        if tag is not None:
+            key = (tag, mod_globals["__name__"].rsplit(".", 1)[-1])
+            lane_launches[key] = lane_launches.get(key, 0) + 1
+
+
+@contextmanager
+def lane(tag, device):
+    """Run the body as lane `tag` on `device`: its launches are counted
+    under the tag, and on a card the body runs with that card current and
+    on a stream of its own, synchronised at the end."""
+    import torch
+    _tls.lane = tag
+    try:
+        if device.type != "cuda":
+            yield
+            return
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream(device)
+            with torch.cuda.stream(stream):
+                yield
+            stream.synchronize()
+    finally:
+        _tls.lane = None

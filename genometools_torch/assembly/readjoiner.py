@@ -414,7 +414,8 @@ def _equal_runs_ok(blob: np.ndarray, a: np.ndarray, b: np.ndarray,
 
 def find_spms(readset: ReadSet, minlen: int,
               singlestrand: bool = False,
-              irreducible: bool = True) -> SpmList:
+              irreducible: bool = True,
+              lanes: int | None = None) -> SpmList:
     """Suffix-prefix matches >= minlen (ref: firstcodes + esa-spmsk;
     brute-force oracle rdj-ovlfind-bf.c via `gt readjoiner spmtest`).
     irreducible=True (the reference overlap phase's semantics,
@@ -424,7 +425,9 @@ def find_spms(readset: ReadSet, minlen: int,
 
     Vectorized join: one rolling k-code pass over the concatenated
     mirrored reads, one sorted-prefix searchsorted per window chunk,
-    then a chunked equality verify — no per-read Python loops."""
+    then a chunked equality verify — no per-read Python loops. lanes:
+    the native join's threads (default: one per CPU); the rows do not
+    depend on it."""
     n = readset.num_reads
     # mirrored read list: m in [0,n) = read m '+'; m in [n,2n) = rc of
     # read 2n-1-m (the reference's mirrored encseq numbering) — the
@@ -455,7 +458,7 @@ def find_spms(readset: ReadSet, minlen: int,
     # identical hit set and emission order, no 20M-row index planes
     from ..core.native import spm_find_native
     native = spm_find_native(blob, starts, lens, k, minlen,
-                             strand_canon=not singlestrand)
+                             strand_canon=not singlestrand, lanes=lanes)
     if native is not None:
         A, B, LL = native
         sr = np.where(A < n, A, m_count - 1 - A)

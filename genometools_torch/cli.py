@@ -49,7 +49,8 @@ def _add_suffixerator(sub):
                    help="memory budget for part planning, e.g. 512MB")
     p.add_argument("-dist", type=int, default=None, metavar="N",
                    help="route the suffix sort over an N-device mesh "
-                        "(0 = off; default: all attached devices)")
+                        "(0 = off; default: all attached devices; at "
+                        "most the attached cards, a power of two)")
     p.add_argument("-showtime", action="store_true")
     p.add_argument("-v", action="store_true", help="verbose logger")
     p.add_argument("--cpu", action="store_true")
@@ -133,10 +134,9 @@ def _common_refusals(args):
 def cmd_suffixerator(args):
     from .core.encseq import READMODES, Encseq
     from .device import resolve_device
-    from .index.esa import build_esa, write_esa
+    from .index.esa import build_esa, dist_mesh, write_esa
     from .utils.options import Logger, Showtime
     _common_refusals(args)
-    _refuse(args, [("-dist", lambda a: a.dist is not None)])
     resolve_device(args.device)       # raises on the host -parts route too
     st = Showtime(args.showtime)
     log = Logger(getattr(args, "v", False))
@@ -170,7 +170,8 @@ def cmd_suffixerator(args):
         return 0
     esa = build_esa(enc, rm, with_lcp=args.lcp,
                     prefixlength=args.pl or None, with_bck=args.bck,
-                    device=args.device)
+                    device=args.device,
+                    mesh=dist_mesh(args.dist, args.device))
     st.phase("sorting the suffixes")
     if args.tis:
         enc.save(indexname)
@@ -197,7 +198,6 @@ def cmd_seed_extend(args):
     from .device import resolve_device
     from .match.seed_extend import SeedExtendParams, _seq_codes, seed_extend
     _common_refusals(args)
-    _refuse(args, [("-dist", lambda a: a.dist is not None)])
     dev = resolve_device(args.device)   # the -estim/-maxmat host routes too
     aenc = Encseq.load(args.ii)
     benc = Encseq.load(args.qii) if args.qii else None
@@ -266,7 +266,16 @@ def cmd_seed_extend(args):
     if col_fmts:
         from .match.seedext_display import match_extra_columns
     events = [] if show_failed else None
-    result = seed_extend(aenc, benc, p, events=events, device=dev)
+    if args.dist is not None and args.parts > 1:
+        # the grid's cells on the lanes of a mesh (N cards, 0 = all),
+        # the output in grid-cell order
+        from .parallel.dist_seed_grid import distributed_seed_extend
+        from .parallel.mesh import make_mesh
+        result = distributed_seed_extend(
+            aenc, benc, p, events=events,
+            devices=make_mesh(args.dist or None, dev))
+    else:
+        result = seed_extend(aenc, benc, p, events=events, device=dev)
     stream = events if show_failed else [("match", m) for m in result]
     out = []
     for ev in stream:

@@ -21,6 +21,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +32,7 @@ _CACHE = Path(__file__).resolve().parents[1] / "_build"
 
 _lib = None
 _tried = False
+_lock = threading.Lock()          # one build and load, whichever thread
 
 def _compile() -> Path | None:
     if not _SRC.exists():
@@ -54,14 +56,26 @@ def _compile() -> Path | None:
 
 def get_lib():
     """Return the loaded ctypes library or None."""
-    global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
-    so = _compile()
-    if so is None:
-        return None
-    lib = ctypes.CDLL(str(so))
+    with _lock:
+        if not _tried:
+            _load()
+    return _lib
+
+
+def _load() -> None:
+    global _lib, _tried
+    try:
+        so = _compile()
+        if so is not None:
+            _lib = _bind(ctypes.CDLL(str(so)))
+    finally:
+        _tried = True
+
+
+def _bind(lib):
+    """lib with the argument types of its always-bound functions."""
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -108,8 +122,7 @@ def get_lib():
             ctypes.POINTER(u64p), pp, pp, pp, pp]
     except AttributeError:
         pass
-    _lib = lib
-    return _lib
+    return lib
 
 
 def _pack_seqs(seqs):
@@ -623,11 +636,12 @@ def tallymer_mkindex_native(codes: np.ndarray, suftab: np.ndarray,
 
 
 def spm_find_native(blob, starts, lens, k: int, minlen: int,
-                    strand_canon: bool):
+                    strand_canon: bool, lanes: int | None = None):
     """Readjoiner SPM join (gt_spm_find; capability of firstcodes +
-    gt_spmsk, ref: src/match/firstcodes.c + esa-spmsk.c). Returns
-    (aidx, bidx, L) int64 arrays in ascending-position emission order,
-    or None without the lib / k > 31."""
+    gt_spmsk, ref: src/match/firstcodes.c + esa-spmsk.c) over `lanes`
+    threads (default: one per CPU). Returns (aidx, bidx, L) int64 arrays
+    in ascending-position emission order, or None without the lib /
+    k > 31."""
     lib = get_lib()
     if lib is None or k > 31 or k <= 0:
         return None
@@ -648,8 +662,7 @@ def spm_find_native(blob, starts, lens, k: int, minlen: int,
             ctypes.POINTER(i64p), ctypes.POINTER(i64p),
             ctypes.POINTER(i64p)]
     oa, ob, ol = i64p(), i64p(), i64p()
-    nlanes = int(os.environ.get("GT_SPM_LANES", 0)) or \
-        (os.cpu_count() or 1)
+    nlanes = lanes or os.cpu_count() or 1
     cnt = lib.gt_spm_find(
         blob.ctypes.data_as(u8p), starts.ctypes.data_as(i64p),
         lens.ctypes.data_as(i64p), starts.size, k, minlen,

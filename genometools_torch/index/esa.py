@@ -3,11 +3,11 @@
 Counterpart of ``genometools_tpu/index/esa.py`` (the reference
 suffixerator pipeline, ref: src/match/sfx-run.c:428). The suffix sort
 runs on the port's device engines (``index/suffix.py``: the packed
-pipeline for canonical keys, prefix doubling otherwise); the derived
-tables, the writers and the reader (``read_prj``, ``load_esa``) are
-the reference's host numpy code, copied because the reference module
-imports JAX. Single device only. ``Encseq`` is the reference's JAX-free
-class, re-exported here.
+pipeline for canonical keys, prefix doubling otherwise), or on a mesh of
+devices (``parallel/dist_doubling_sharded``); the derived tables, the
+writers and the reader (``read_prj``, ``load_esa``) are the reference's
+host numpy code, copied because the reference module imports JAX.
+``Encseq`` is the reference's JAX-free class, re-exported here.
 
 On-disk formats (ref: src/match/esa-fileend.h:26-77): .suf — suffix
 positions as native-endian words; .lcp — one byte per entry, 255 marks
@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..core.chardef import is_special
 from ..core.encseq import FWD, Encseq
@@ -192,19 +193,50 @@ def compute_bcktab(esa: EnhancedSuffixArray, prefixlength: int) -> Bcktab:
                   distpfxidx.astype(np.int64))
 
 
+def dist_mesh(n: int | None, device="cuda"):
+    """The mesh of the sharded suffix sort: n shards (all attached cards
+    for None; one, the single-device route, for 0), at most the attached
+    cards, rounded down to a power of two (the CPU: n shards of it)."""
+    from ..device import resolve_device
+    from ..parallel.mesh import Mesh, make_mesh, pow2_floor
+    dev = resolve_device(device)
+    if n == 0:
+        return Mesh([dev])
+    if dev.type == "cpu":
+        return make_mesh(pow2_floor(n or 1), dev)
+    have = torch.cuda.device_count()
+    if have <= 1:
+        return Mesh([dev])
+    return make_mesh(pow2_floor(min(n or have, have)), dev)
+
+
 def build_esa(encseq: Encseq, readmode: int = FWD, with_lcp: bool = True,
               prefixlength: int | None = None, with_bck: bool = False,
-              device="cuda") -> EnhancedSuffixArray:
+              device="cuda", mesh=None) -> EnhancedSuffixArray:
     """suffixerator equivalent: encseq -> (suftab, lcptab[, bcktab]),
-    with the suffix sort on `device`."""
+    with the suffix sort on `device`. On a mesh of more than one shard
+    (by default dist_mesh(None, device): every attached card, a power of
+    two) the sort is the sharded sample-sort engine and the LCP the
+    host's Kasai (ref: the reference's threaded bucket fan-out,
+    sfx-suffixer.c); the tables are the same."""
     keys = encseq.suffix_keys(readmode)
-    sa, lcp = build_suffix_array(keys, with_lcp=with_lcp, device=device)
+    if mesh is None:
+        mesh = dist_mesh(None, device)
+    if mesh.size > 1:
+        from ..parallel.dist_doubling_sharded import sharded_suffix_array
+        sa = sharded_suffix_array(keys, mesh)
+        lcp = kasai_lcp_native(keys, sa) if with_lcp else None
+        if with_lcp and lcp is None:
+            raise RuntimeError("the native host engine is unavailable")
+    else:
+        sa, lcp = build_suffix_array(keys, with_lcp=with_lcp,
+                                     device=mesh.devices[0])
+        sa = sa.cpu().numpy()
+        lcp = lcp.cpu().numpy() if with_lcp else None
     pl = prefixlength or recommended_prefixlength(
         encseq.alphabet.num_chars, encseq.total_length)
     esa = EnhancedSuffixArray(
-        encseq=encseq, readmode=readmode,
-        suftab=sa.cpu().numpy(),
-        lcptab=lcp.cpu().numpy() if with_lcp else None,
+        encseq=encseq, readmode=readmode, suftab=sa, lcptab=lcp,
         prefixlength=pl)
     if with_bck:
         esa.bcktab = compute_bcktab(esa, pl)

@@ -25,14 +25,20 @@ same (sa, lcp):
     XOR + leading-zero pass over them, and only pairs with lcp >= m
     descend the rank snapshots of the rounds that did work;
 * prefix doubling from _BOOT symbols (``build_sa_impl``, ``lcp_impl``)
-  for every other key array (UNDEFCHAR symbols, synthetic keys).
+  for every other key array (UNDEFCHAR symbols, synthetic keys);
+* the wide route, the reference's for inputs past its int32 budget:
+  the position-sharded sample-sort engine of
+  ``parallel/dist_doubling_sharded`` on int64 lanes, on a one-shard
+  mesh of the device, with the LCP by the host's Kasai. It takes
+  canonical keys beyond int32 and other keys above 2^30 symbols (pad
+  included, as the reference reckons it).
 
 Every special symbol and the sentinel carry a unique key, so no two
 suffixes share a full-length rank and the final rank is the inverse
-suffix array. The reference's pads (a 1M quantum, powers of two) and its
-hand-off above 2^30 symbols to a sharded engine were for XLA and the TPU:
-here every stage works on exactly n1 entries. Storage is int32 (n1 <
-2^31); index arithmetic that can pass 2^31 (position + step) is int64.
+suffix array. The reference's pads (a 1M quantum, powers of two) were
+for XLA: here the packed pipeline and doubling work on exactly n1
+entries. Storage is int32 (n1 < 2^31); index arithmetic that can pass
+2^31 (position + step) is int64.
 Full-length passes run in chunks of _CHUNK entries, so that a genome of
 2^30 symbols fits the card's memory.
 """
@@ -50,6 +56,7 @@ _BOOT = 4
 _FSBITS = 5                       # fs field: offsets 0..m <= 31
 _M30 = (1 << 30) - 1
 _CHUNK = 1 << 26                  # entries per pass of a full-length stage
+_PAD_QUANTUM = 1 << 20            # the reference's pad, for its routing
 
 
 # ---------------------------------------------------------------------------
@@ -421,8 +428,45 @@ def _canonical(keys: torch.Tensor, sigma: int) -> bool:
     return True
 
 
+def _pad_size(n1: int) -> int:
+    """The reference's padded length (powers of two up to 1M, then 1M
+    multiples), which its routing reckons with."""
+    if n1 <= _PAD_QUANTUM:
+        return 1 << max(0, (n1 - 1).bit_length())
+    return -(-n1 // _PAD_QUANTUM) * _PAD_QUANTUM
+
+
+def _build_suffix_array_wide(keys: torch.Tensor, with_lcp: bool,
+                             trace: dict | None):
+    """The wide route: int64-lane sample-sort doubling on a one-shard
+    mesh of keys' device, the LCP by the host's Kasai."""
+    from ..core.native import kasai_lcp_native
+    from ..parallel.dist_doubling_sharded import sharded_suffix_array
+    from ..parallel.mesh import Mesh
+    dev = keys.device
+    t0 = time.perf_counter()
+    sa = sharded_suffix_array(keys, Mesh([dev]), lanes="int64")
+    sa = sa.astype(np.int32)
+    if trace is not None:
+        trace["sort_s"] = time.perf_counter() - t0
+    lcp = None
+    if with_lcp:
+        t0 = time.perf_counter()
+        hk = keys.cpu().numpy()
+        if int(hk.max()) >= 2 ** 31 or int(hk.min()) < -2 ** 31:
+            # equal keys stay equal under an order-preserving renaming
+            hk = np.unique(hk, return_inverse=True)[1]
+        lcp = kasai_lcp_native(hk, sa)
+        if lcp is None:
+            lcp = kasai_lcp(hk, sa)
+        if trace is not None:
+            trace["kasai_s"] = time.perf_counter() - t0
+        lcp = torch.from_numpy(lcp).to(dev)
+    return torch.from_numpy(sa).to(dev), lcp
+
+
 def build_suffix_array(keys, with_lcp: bool = True, device="cuda",
-                       trace: dict | None = None):
+                       trace: dict | None = None, engine: str = "auto"):
     """(sa, lcp) as int32 tensors on `device` from suffix keys of length
     totallength+1 (sentinel included): sa is the full suftab, lcp[i] =
     lcp(sa[i-1], sa[i]) with lcp[0] = 0 (None without with_lcp).
@@ -430,8 +474,15 @@ def build_suffix_array(keys, with_lcp: bool = True, device="cuda",
     keys is a numpy array or a tensor (one already on `device` is not
     copied). Canonical keys (every key >= sigma equals sigma + position,
     sigma = keys[-1] - (n1 - 1), 1 <= sigma < 2^24) take the packed
-    pipeline, every other key array prefix doubling; trace (a dict) is
-    filled by the pipeline, see _sa_pipeline."""
+    pipeline unless their values pass int32, every other key array
+    prefix doubling unless it passes the reference's int32 budget (more
+    than 2^30 symbols, or keys reaching 2^31 - 1 with its pad);
+    engine="wide" forces the wide route (module docstring) for any
+    input. trace (a dict) gets the engine taken, and is filled by the
+    pipeline (see _sa_pipeline) or the wide route (its sort and Kasai
+    seconds)."""
+    if engine not in ("auto", "wide"):
+        raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
     if not isinstance(keys, torch.Tensor):
         keys = torch.from_numpy(np.ascontiguousarray(keys))
@@ -441,18 +492,24 @@ def build_suffix_array(keys, with_lcp: bool = True, device="cuda",
         z = torch.zeros(0, dtype=torch.int32, device=dev)
         return z, (z if with_lcp else None)
     if n1 >= 2 ** 31:
+        # the reference's wide route casts its SA to int32, which wraps
+        # positions from 2^31 on: the port stops here instead
         raise NotImplementedError("inputs of 2^31 symbols or more are not "
                                   "ported yet")
     sigma = int(keys[-1]) - (n1 - 1)
-    if 1 <= sigma < 2 ** 24 and _canonical(keys, sigma):
-        if sigma + n1 > 2 ** 31 - 1:
-            raise NotImplementedError("keys beyond int32 are not ported "
-                                      "yet")
-        if trace is not None:
-            trace["engine"] = "packed"
-        return _sa_pipeline(keys.to(torch.int32), sigma, with_lcp, trace)
+    if engine == "auto":
+        if 1 <= sigma < 2 ** 24 and _canonical(keys, sigma):
+            engine = "packed" if sigma + n1 <= 2 ** 31 - 1 else "wide"
+        else:
+            npad = _pad_size(n1)
+            engine = "wide" if npad > 2 ** 30 or \
+                int(keys.max()) + (npad - n1) >= 2 ** 31 - 1 else "doubling"
     if trace is not None:
-        trace["engine"] = "doubling"
+        trace["engine"] = engine
+    if engine == "packed":
+        return _sa_pipeline(keys.to(torch.int32), sigma, with_lcp, trace)
+    if engine == "wide":
+        return _build_suffix_array_wide(keys, with_lcp, trace)
     return doubling_sa_lcp(keys, with_lcp)
 
 

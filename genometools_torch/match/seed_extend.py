@@ -811,6 +811,24 @@ def _strand_matches(aenc, benc, direction, pairs, k, mincov, belowscore,
                                wave, pools)
 
 
+def run_context(aenc, benc, params, events, dev, wave=WAVE,
+                engine="wave"):
+    """(strands, run): what every strand and grid cell of one run shares
+    (seed length, coverage, scores, device, the strand pools' cache)."""
+    k = params.seedlength or default_seedlength(aenc, benc)
+    mincov = params.mincoverage if params.mincoverage is not None \
+        else int(2.5 * k)
+    if not params.userdefinedleastlength:
+        # default -l is the mincoverage (ref: gt_seed_extend.c:1139)
+        params.userdefinedleastlength = mincov
+    strands = (["F"] if params.forward else []) + \
+        (["P"] if params.reverse else [])
+    return strands, dict(k=k, mincov=mincov, belowscore=params.belowscore(),
+                         params=params, amaxlen=aenc.max_seq_length(),
+                         events=events, dev=dev, wave=wave, engine=engine,
+                         pools={})
+
+
 def seed_extend(aenc: Encseq, benc: Encseq | None = None,
                 params: SeedExtendParams | None = None,
                 events: list | None = None, device="cuda",
@@ -829,21 +847,11 @@ def seed_extend(aenc: Encseq, benc: Encseq | None = None,
     dev = resolve_device(device) if engine == "wave" else None
     selfcomp = benc is None
     benc = benc or aenc
-    k = params.seedlength or default_seedlength(aenc, benc)
-    mincov = params.mincoverage if params.mincoverage is not None \
-        else int(2.5 * k)
-    if not params.userdefinedleastlength:
-        # default -l is the mincoverage (ref: gt_seed_extend.c:1139)
-        params.userdefinedleastlength = mincov
-    belowscore = params.belowscore()
-    amaxlen = aenc.max_seq_length()
-    strands = (["F"] if params.forward else []) + \
-        (["P"] if params.reverse else [])
-    run = dict(k=k, mincov=mincov, belowscore=belowscore, params=params,
-               amaxlen=amaxlen, events=events, dev=dev, wave=wave,
-               engine=engine, pools={})
+    strands, run = run_context(aenc, benc, params, events, dev, wave,
+                               engine)
     if params.parts > 1 or params.pick:
         return _seed_extend_grid(aenc, benc, selfcomp, strands, run)
+    k = run["k"]
     smask = params.spaced_mask(k)
     alist = enumerate_kmers(aenc, k, revcomp=False, spaced_mask=smask)
     matches: list[SeedExtendMatch] = []
@@ -900,7 +908,23 @@ def _seed_extend_grid(aenc, benc, selfcomp, strands, run):
     own invariance bar, sorted-output equality). As in the reference
     package, the grid's k-mers are contiguous: -spacedseed does not
     reach it."""
-    params, k = run["params"], run["k"]
+    aranges, branges, cells = grid_cells(aenc, benc, selfcomp, run["params"])
+    k = run["k"]
+    matches: list[SeedExtendMatch] = []
+    alist_full = enumerate_kmers(aenc, k, revcomp=False)
+    blists = {d: enumerate_kmers(benc, k, revcomp=(d == "P"))
+              for d in strands}
+    for ai, bi in cells:
+        matches.extend(grid_cell_matches(
+            aenc, benc, selfcomp, strands, alist_full, blists,
+            aranges[ai], branges[bi], ai == bi, run))
+    return matches
+
+
+def grid_cells(aenc, benc, selfcomp, params):
+    """(A-ranges, B-ranges, cells): the grid's cells (ai, bi) in output
+    order, B starting at the A range for self-comparison, only the
+    -pick cell when one is picked."""
     aranges = sequence_ranges(aenc, params.parts)
     branges = aranges if selfcomp else sequence_ranges(benc, params.parts)
     if params.pick is not None:
@@ -909,20 +933,10 @@ def _seed_extend_grid(aenc, benc, selfcomp, strands, run):
             raise ValueError(
                 f"option -pick must not exceed {len(aranges)} "
                 f"(number of parts)")
-    matches: list[SeedExtendMatch] = []
-    alist_full = enumerate_kmers(aenc, k, revcomp=False)
-    blists = {d: enumerate_kmers(benc, k, revcomp=(d == "P"))
-              for d in strands}
-    for ai in range(len(aranges)):
-        bstart = ai if selfcomp else 0
-        for bi in range(bstart, len(branges)):
-            if params.pick is not None and \
-                    (ai + 1, bi + 1) != tuple(params.pick):
-                continue
-            matches.extend(grid_cell_matches(
-                aenc, benc, selfcomp, strands, alist_full, blists,
-                aranges[ai], branges[bi], ai == bi, run))
-    return matches
+    cells = [(ai, bi) for ai in range(len(aranges))
+             for bi in range(ai if selfcomp else 0, len(branges))
+             if params.pick is None or (ai + 1, bi + 1) == tuple(params.pick)]
+    return aranges, branges, cells
 
 
 def grid_cell_matches(aenc, benc, selfcomp, strands, alist_full, blists,

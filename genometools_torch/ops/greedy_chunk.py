@@ -110,7 +110,6 @@ def greedy_chunk(P, row, h, hsize, mm, valid, d_lane, done, died, best,
     """K2 on P's device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. The inputs are not modified; returns the
     new state (see the module docstring) on that device."""
-    global launches
     check_history(hist_cap)
     args = (P, row, h, hsize, mm, valid, d_lane, done, died, best, urem,
             vrem, kbase, rowbase)
@@ -131,13 +130,12 @@ def greedy_chunk(P, row, h, hsize, mm, valid, d_lane, done, died, best,
     N = P.shape[0]
     paused = torch.zeros(N, dtype=torch.bool, device=P.device)
     if N:
-        err = _kernels.lib().gt_greedy_chunk(
-            P.data_ptr(), row.data_ptr(), h.data_ptr(), hsize.data_ptr(),
+        _kernels.call(
+            "gt_greedy_chunk", P.device, P.data_ptr(), row.data_ptr(), h.data_ptr(), hsize.data_ptr(),
             mm.data_ptr(), valid.data_ptr(), d_lane.data_ptr(),
             done.data_ptr(), died.data_ptr(), paused.data_ptr(),
             best.data_ptr(), urem.data_ptr(), vrem.data_ptr(),
             kbase.data_ptr(), rowbase.data_ptr(), N, W, D, gens_cap(GENS),
-            cut_depth, *sc, _kernels.stream_ptr(P.device))
-        _kernels.check(err, "gt_greedy_chunk")
-        launches += 1
+            cut_depth, *sc)
+        _kernels.record_launch(globals())
     return row, h, hsize, mm, valid, best, done, died, paused, d_lane

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _kernels
 from .bits import (M32, NEGINF, ctz32, ones64, polish_walk, popcount64,
                    shl64)
 from .pool import (check_lanes, kernel_occupancy, launch_pool_kernel,
@@ -438,7 +439,6 @@ def greedy_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev, seedlen,
     than it pauses at the window and comes back undone). Returns the
     (7, N) int32 result and the live slot-generations, (1,) int64, both
     on that device."""
-    global launches
     check_history(hist_cap)
     d_tiers = tuple(int(D) for D in d_tiers)
     if W % 32 or W <= 0 or not d_tiers or GENS < 0 or \
@@ -468,9 +468,8 @@ def greedy_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev, seedlen,
     conf = [W, d_tiers[0], d_tiers[1] if len(d_tiers) > 1 else 0,
             gens_cap(GENS), cut_depth, *sc]
     slot_gens = launch_pool_kernel("gt_greedy_full", gp, desc, conf, out)
-    launches += 1
-    work["slot_gens"] += int(slot_gens)
-    work["bytes"] += gp.numel() * 8 + 41 * N + out.numel() * 4
+    _kernels.record_launch(globals(), int(slot_gens),
+                           gp.numel() * 8 + 41 * N + out.numel() * 4)
     return out, slot_gens
 
 

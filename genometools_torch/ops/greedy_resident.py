@@ -145,7 +145,6 @@ def greedy_resident(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
     """The resident kernel on the pool's device: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors. Returns the result
     described in the module docstring."""
-    global launches
     check_history(hist_cap)
     desc = (ustart, ulen, vstart, vlen, rev, seedlen)
     _check(gp, desc, w_tiers, d_tiers, GENS, max_chunks)
@@ -175,15 +174,13 @@ def greedy_resident(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
             gens_cap(GENS), int(max_chunks), 15, *sc]
     conf_c = (ctypes.c_int * len(conf))(*conf)
     if n:
-        err = _kernels.lib().gt_greedy_resident(
-            gp.data_ptr(), gp.shape[1], *(t.data_ptr() for t in desc),
+        _kernels.call(
+            "gt_greedy_resident", dev, gp.data_ptr(), gp.shape[1], *(t.data_ptr() for t in desc),
             order.data_ptr(), ctr.data_ptr(), best.data_ptr(),
             died.data_ptr(), route.data_ptr(), chunks.data_ptr(),
-            slot_gens.data_ptr(), conf_c, n, _kernels.stream_ptr(dev))
-        _kernels.check(err, "gt_greedy_resident")
-        launches += 1
-        work["slot_gens"] += int(slot_gens)
+            slot_gens.data_ptr(), conf_c, n)
         # 41 bytes in and 22 out a lane
-        work["bytes"] += gp.numel() * 8 + 63 * n
+        _kernels.record_launch(globals(), int(slot_gens),
+                               gp.numel() * 8 + 63 * n)
     return {"best": best, "died": died, "route": route, "chunks": chunks,
             "slot_gens": slot_gens}

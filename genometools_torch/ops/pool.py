@@ -268,11 +268,9 @@ def launch_pool_kernel(fn: str, gp: torch.Tensor, desc, conf,
     slot_gens = torch.zeros(1, dtype=torch.int64, device=dev)
     ptrs = (ctypes.c_void_p * len(desc))(*(t.data_ptr() for t in desc))
     conf_c = (ctypes.c_int * len(conf))(*conf)
-    err = getattr(_kernels.lib(), fn)(
-        gp.data_ptr(), gp.shape[1], ptrs, order.data_ptr(), ctr.data_ptr(),
-        out.data_ptr(), slot_gens.data_ptr(), conf_c, n,
-        _kernels.stream_ptr(dev))
-    _kernels.check(err, fn)
+    _kernels.call(fn, dev, gp.data_ptr(), gp.shape[1], ptrs,
+                  order.data_ptr(), ctr.data_ptr(), out.data_ptr(),
+                  slot_gens.data_ptr(), conf_c, n)
     return slot_gens
 
 

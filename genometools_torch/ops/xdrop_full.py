@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _kernels
 from .bits import NEGINF
 from .greedy_full import gens_cap, match_run, match_words
 from .pool import (check_lanes, kernel_occupancy, launch_pool_kernel,
@@ -243,7 +244,6 @@ def xdrop_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
     (``XdropScores.distances()`` of unit-distance scores). Returns the
     (5, N) int32 result and the candidate slot-generations, (1,) int64,
     both on that device."""
-    global launches
     tiers = tuple((int(W), int(G)) for W, G in tiers)
     _check_tiers(tiers, D, belowscore, quantum, half)
     desc = (ustart, ulen, vstart, vlen, rev)
@@ -262,9 +262,8 @@ def xdrop_full(gp: torch.Tensor, ustart, ulen, vstart, vlen, rev,
     slot_gens = launch_pool_kernel("gt_xdrop_full", gp, desc,
                                    _conf(tiers, D, belowscore, quantum,
                                          half), out)
-    launches += 1
-    work["slot_gens"] += int(slot_gens)
-    work["bytes"] += gp.numel() * 8 + 33 * N + out.numel() * 4
+    _kernels.record_launch(globals(), int(slot_gens),
+                           gp.numel() * 8 + 33 * N + out.numel() * 4)
     return out, slot_gens
 
 

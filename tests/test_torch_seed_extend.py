@@ -2,6 +2,8 @@
 against the reference seed_extend (its fused host engine on the CPU),
 greedy and xdrop, line for line."""
 
+import contextlib
+import io
 from pathlib import Path
 
 import numpy as np
@@ -142,18 +144,21 @@ def test_kmer_helpers_match_reference(case):
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
-    """The CLI still refuses -dist (multi-device, not ported); -parts 2
-    runs and equals the reference."""
+    """-dist (the grid's cells on a mesh's lanes, ported) and -parts 2
+    run and equal the reference."""
     from genometools_torch.cli import main
     enc = _golden_enc("Atinsert.fna")
     enc.save(str(tmp_path / "idx"))
-    with pytest.raises(SystemExit, match="-dist"):
-        main(["seed_extend", "-ii", str(tmp_path / "idx"), "-dist", "-parts",
-              "2", "-device", "cpu"])
     ref, got, _ = _both(enc, monkeypatch, minidentity=90,
                         extension="greedy", userdefinedleastlength=14,
                         parts=2)
     assert got == ref and ref
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["seed_extend", "-ii", str(tmp_path / "idx"), "-l", "14",
+              "-minidentity", "90", "-dist", "-parts", "2", "-device",
+              "cpu"])
+    assert buf.getvalue().splitlines() == ref
 
 
 def test_planted_repeats_take_the_chunk_route(monkeypatch, tmp_path):

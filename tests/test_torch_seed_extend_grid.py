@@ -133,25 +133,23 @@ def test_pick_errors(tmp_path):
 
 
 def test_cli_refuses_dist_and_runs_parts(tmp_path):
-    """-dist is still refused; -parts 2 runs and prints the reference
-    CLI's bytes."""
+    """-parts 2 runs and prints the reference CLI's bytes, and so does
+    -parts 2 -dist 2 (ported: the grid's cells on a mesh's lanes)."""
     from genometools_tpu.cli import main as ref_main
 
     from genometools_torch.cli import main
     enc = Encseq.from_string("|".join(_planted_text(5)))
     enc.save(str(tmp_path / "idx"))
-    with pytest.raises(SystemExit, match="-dist"):
-        main(["seed_extend", "-ii", str(tmp_path / "idx"), "-parts", "2",
-              "-dist", "2", "-device", "cpu"])
     argv = ["seed_extend", "-ii", str(tmp_path / "idx"), "-l", "40",
             "-seedlength", "12", "-parts", "2"]
     out = []
-    for run, extra in ((ref_main, ["--cpu"]), (main, ["-device", "cpu"])):
+    for run, extra in ((ref_main, ["--cpu"]), (main, ["-device", "cpu"]),
+                       (main, ["-dist", "2", "-device", "cpu"])):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             run(argv + extra)
         out.append(buf.getvalue())
-    assert out[1] == out[0] and out[0]
+    assert out[2] == out[1] == out[0] and out[0]
 
 
 @pytest.mark.parametrize("db,seedlength,minlength", [

@@ -1,7 +1,7 @@
 """genometools_torch stands alone: no module of the port, and not
 chip_smoke.py, imports the reference package or JAX, and the port's
-suffixerator (in memory and with -parts), suffixerator_e2e, seed_extend
-(with -parts, -maxmat and -estim), repfind, tallymer mkindex|search,
+suffixerator (in memory, with -parts and with -dist), suffixerator_e2e,
+seed_extend (with -parts, -dist, -maxmat and -estim), repfind, tallymer mkindex|search,
 readjoiner prefilter|overlap|assembly, genomediff, ltrharvest, tirvish,
 ltrclustering, packedindex mkindex, prebwt, tagerator (-esa and -pck),
 mergeesa and sain run in a process where both are blocked, printing
@@ -50,12 +50,16 @@ COMMANDS = [
      "-tis"],
     ["suffixerator", "-db", "in.fa", "-indexname", "parts", "-suf", "-lcp",
      "-tis", "-parts", "2"],
+    ["suffixerator", "-db", "in.fa", "-indexname", "dist", "-suf", "-lcp",
+     "-tis", "-dist", "2"],
     ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
      "-extendgreedy", "-outfmt", "alignment"],
     ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
      "-extendxdrop", "-outfmt", "evalue", "bitscore"],
     ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
      "-parts", "2"],
+    ["seed_extend", "-ii", "idx", "-l", "14", "-minidentity", "90",
+     "-dist", "2", "-parts", "3"],
     ["seed_extend", "-ii", "idx", "-l", "20", "-maxmat"],
     ["seed_extend", "-ii", "idx", "-estim", "ANI"],
     ["repfind", "-l", "8", "-ii", "idx", "-f", "-r", "-p"],
@@ -146,7 +150,7 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     got = out.stdout.split("#--\n")[:len(COMMANDS)]
-    for name in ("parts", "e2e"):
+    for name in ("parts", "dist", "e2e"):
         for ext in ("suf", "lcp", "llv", "prj", "esq"):
             assert (tmp_path / f"{name}.{ext}").read_bytes() == \
                 (tmp_path / f"idx.{ext}").read_bytes(), (name, ext)
