@@ -156,6 +156,27 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      route) and `seed_extend -dist 4 -parts 3` (phase 11's lines); then
      dryrun_multichip(8, "cuda"). The kernels' launches in its grid and
      -dist runs are added to the main paths' in the kernels line.
+  19. the annotator's pipeline on phase 16's genome, through the port's
+     CLI: chseqids (phase 16's seq0..seq3 onto pt.fna's chr_0..chr_3),
+     gff3 -sort -retainids, ltrdigest -trnas -seqfile with a library of
+     200 tRNA-like sequences of 72-90 bp (numpy seed 2029, 100 of them
+     ending in the reverse complement of the 18 bp after a planted 5'
+     LTR: utils/synthetic.py::trna_library), ltrdigest -outfileprefix,
+     then stat, gff3validator and extractfeat -type LTR_retrotransposon
+     on ltrdigest's output; every step must exit 0. The CLI's GFF3 must
+     equal the library's (engine="batch"); ltrdigest must find elements
+     and annotate planted PBS; the PBS batch's hits must equal the host
+     route's (pbs_find, one local_alignment at a time) on 8 elements
+     only: the first 8 whose 5' LTR ends within 5 bp of a planted
+     primer's (3,200 alignments: the host route takes some 8 ms an
+     alignment on the card's host, so all of them would take some 20
+     minutes); the batch's raw rows (score, ustart, uend, vstart,
+     edist) must equal pbs_align's on 512 lanes drawn with numpy seed
+     2030 from all of them, lanes with no hit included; every
+     extracted element must equal its slice of pt.fna; gff3validator
+     must print "input is valid GFF3". Printed: each step's seconds, the
+     PPT search's, the PBS batch's (fill, traceback, host filters), the
+     lanes, the peak device memory, and the planted PBS found within 3 bp.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -1304,7 +1325,7 @@ def phase_querytools(cli, work: Path, smi: str) -> None:
             + (f"; {out[1:3]}" if argv[0] != "matstat" else ""))
 
 
-def phase_ltr(cli, work: Path, dev, smi: str) -> None:
+def phase_ltr(cli, work: Path, dev, smi: str):
     """Phase 16: ltrharvest, tirvish and ltrclustering on a 32 Mbp
     planted-transposon genome (4 x 8,000,000 bp, numpy seed 2027, 400
     LTR elements of 40 families, 200 TIR elements): the batch routes'
@@ -1313,7 +1334,7 @@ def phase_ltr(cli, work: Path, dev, smi: str) -> None:
     ltrclustering's GFF3 against seed_extend's fused host engine,
     the launches of K3 (ltrharvest, tirvish) and K1 (ltrclustering) read
     around each run, and the recall of the planted elements within 3 bp
-    (printed)."""
+    (printed). Returns the genome's sequences and planted rows."""
     from genometools_torch.anno.gff3 import gff3_to_string, parse_gff3
     from genometools_torch.index.esa import Encseq
     from genometools_torch.ltr import ltrclustering as lc
@@ -1441,6 +1462,7 @@ def phase_ltr(cli, work: Path, dev, smi: str) -> None:
         f"route ({tf:.3f}s)")
     if k1 == 0:
         raise SystemExit("ltrclustering launched K1 no time")
+    return seqs, planted
 
 
 def tag_rows(lines) -> dict:
@@ -1861,6 +1883,220 @@ def phase_mesh(cli, work: Path, dev, smi: str, grid_lines: dict) -> dict:
     dt, _ = synced(lambda: dryrun_multichip(MESH_SHARDS, "cuda"))
     log(f"dryrun_multichip: {dt:.3f}s")
     return launches
+
+
+def pbs_fields(hits) -> list:
+    return [(h.rng.start, h.rng.end, h.strand, h.trna, h.trna_offset,
+             h.offset, h.edist, h.score) for h in hits]
+
+
+def pbs_lane_rows(ld, elems, lib, dev, n: int) -> int:
+    """The batch's raw rows (_sw_lanes on dev) of n lanes drawn with
+    numpy seed 2030 from every (element, strand window, tRNA) lane,
+    against the host's pbs_align; lanes that give no hit are held too.
+    Returns how many of them the filters keep as hits."""
+    from genometools_torch.core.alphabet import dna_alphabet
+    from genometools_torch.utils.seqtools import revcomp_str
+    p = ld.LTRdigestParams()
+    wins = [w for seq, lrel, rrel, _ in elems
+            for _, w in ld._pbs_windows(seq, lrel, rrel, p.pbs_radius)]
+    trnas = [revcomp_str(t) for _, t in lib]
+    rng = np.random.default_rng(2030)
+    wk = rng.integers(0, len(wins), n)
+    tk = rng.integers(0, len(trnas), n)
+    al, ids, V = dna_alphabet(), {}, max(map(len, trnas))
+    vc = np.full((n, V), 255, np.int32)
+    vi = np.full((n, V), -1, np.int32)
+    for k, t in enumerate(tk):
+        s = trnas[t]
+        vc[k, :len(s)] = al.encode(s.encode())
+        vi[k, :len(s)] = ld._symbol_ids(s, ids)
+    uc = np.stack([al.encode(wins[w].encode()) for w in wk]).astype(np.int32)
+    ui = np.stack([ld._symbol_ids(wins[w], ids) for w in wk])
+    vlen = torch.tensor([len(trnas[t]) for t in tk], device=dev)
+    got = ld._sw_lanes(*(torch.from_numpy(a).to(dev) for a in (uc, vc)),
+                       vlen, *(torch.from_numpy(a).to(dev) for a in (ui, vi)),
+                       p, {}).cpu().tolist()
+    want = [list(ld.pbs_align(wins[w], trnas[t], p)) for w, t in zip(wk, tk)]
+    if got != want:
+        bad = next(k for k in range(n) if got[k] != want[k])
+        raise SystemExit(f"PBS lane {bad}: batch {got[bad]}, host "
+                         f"{want[bad]}")
+    return sum(r[0] > 0 and bool(ld._pbs_keep(r[4], abs(p.pbs_radius - r[1]),
+                                              r[2] - r[1] + 1, r[3], p))
+               for r in want)
+
+
+def phase_anno(cli, work: Path, dev, smi: str, seqs, planted) -> None:
+    """Phase 19: the annotator's pipeline on phase 16's genome (pt.fna,
+    pt.gff3): chseqids, gff3 -sort, ltrdigest with a 200-tRNA library,
+    ltrdigest -outfileprefix, stat, gff3validator and extractfeat,
+    through the port's CLI on the card; every step must exit 0, and
+    ltrdigest must find elements and annotate planted PBS. The PBS
+    batch is held against the host route on 8 elements only (the first
+    8 whose 5' LTR ends within 5 bp of a planted primer's: 3,200
+    alignments at some 8 ms each on the host), and its raw rows on 512
+    seeded lanes of the whole batch."""
+    from genometools_torch.anno.cds import RegionMapping
+    from genometools_torch.anno.gff3 import gff3_to_string, parse_gff3
+    from genometools_torch.ltr import ltrdigest as ld
+    from genometools_torch.utils.seqtools import revcomp_str
+    from genometools_torch.utils.synthetic import trna_library
+    lib, pairs = trna_library(seqs, planted)
+    with open(work / "trna.fa", "w") as f:
+        for name, s in lib:
+            f.write(f">{name} tRNA-like\n{s}\n")
+    log(f"tRNA library: {len(lib)} sequences of "
+        f"{min(len(s) for _, s in lib)}-{max(len(s) for _, s in lib)} bp, "
+        f"{len(pairs)} with a planted primer")
+    (work / "pt.map.lua").write_text(
+        "chseqids = {\n" + "".join(f'  seq{k} = "chr_{k}",\n'
+                                   for k in range(len(seqs))) + "}\n")
+    steps = {}
+
+    def step(name, argv, out=None):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        steps[name] = time.perf_counter() - t0
+        if rc:
+            raise SystemExit(f"{name} exited {rc}")
+        lines = buf.getvalue().splitlines()
+        if out is not None:
+            (work / out).write_text("".join(x + "\n" for x in lines))
+        return lines
+
+    step("chseqids", ["chseqids", "pt.map.lua", "pt.gff3"], "pt.chr.gff3")
+    step("gff3 -sort", ["gff3", "-sort", "-retainids", "pt.chr.gff3"],
+         "pt.sorted.gff3")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ldo = step("ltrdigest", ["ltrdigest", "-trnas", "trna.fa", "-seqfile",
+                             "pt.fna", "pt.sorted.gff3"], "pt.ld.gff3")
+    peak = torch.cuda.max_memory_allocated() - base
+    if not ldo or ldo[0] != "##gff-version 3":
+        raise SystemExit("ltrdigest printed no GFF3")
+
+    # the library on the same input: the CLI's GFF3, the step times
+    sorted_text = (work / "pt.sorted.gff3").read_text()
+    t0 = time.perf_counter()
+    mapping = RegionMapping.from_file("pt.fna")
+    tmap = time.perf_counter() - t0
+    tr = {}
+    t0 = time.perf_counter()
+    nodes = ld.ltrdigest(parse_gff3(sorted_text), mapping, lib, device=dev,
+                         trace=tr)
+    tlib = time.perf_counter() - t0
+    if gff3_to_string(nodes, retainids=True) != \
+            (work / "pt.ld.gff3").read_text():
+        raise SystemExit("the ltrdigest CLI's GFF3 differs from the "
+                         "library's")
+    log(f"ltrdigest -trnas -seqfile: CLI {steps['ltrdigest']:.3f}s, "
+        f"library {tlib:.3f}s (+ {tmap:.3f}s reading pt.fna) [{smi}]; "
+        f"{tr['elements']} elements, {tr['lanes']} PBS lanes; PPT search "
+        f"{tr['ppt_s']:.3f}s; PBS batch {tr['pbs_s']:.3f}s (fill "
+        f"{tr['fill_s']:.3f}s, traceback {tr['traceback_s']:.3f}s, host "
+        f"filters {tr['filters_s']:.3f}s); peak device memory of the CLI "
+        f"run {peak / 2**20:.1f} MiB; the CLI's GFF3 equals the library's")
+
+    if tr["elements"] == 0:
+        raise SystemExit("ltrdigest found no LTR elements")
+
+    # the PBS batch (warm) against the host route: every field of every
+    # hit on the first 8 elements whose 5' LTR ends within 5 bp of a
+    # planted primer's, then the raw rows of 512 seeded lanes
+    elist = ld.ltr_elements(parse_gff3(sorted_text), mapping)
+    elems = [(seq, lrel, rrel, fn.range.start) for fn, seq, _, _, lrel, rrel
+             in elist]
+    t = {}
+    batch = ld.pbs_find_batch(elems, lib, device=dev, trace=t)
+    log(f"PBS batch (warm): fill {t['fill_s']:.4f}s, traceback "
+        f"{t['traceback_s']:.4f}s, host filters {t['filters_s']:.4f}s")
+    primed = {(f"chr_{planted[row, 1]}", int(planted[row, 3]) + 1 + d)
+              for _, row in pairs for d in range(-5, 6)}
+    sample = [e for e, (fn, _, left, _, _, _) in enumerate(elist)
+              if (fn.seqid, left.end) in primed][:8]
+    if len(sample) < 8:
+        raise SystemExit(f"only {len(sample)} elements near a planted "
+                         f"primer")
+    t0 = time.perf_counter()
+    host = [ld.pbs_find(*elems[e], lib) for e in sample]
+    th = time.perf_counter() - t0
+    if [pbs_fields(h) for h in host] != \
+            [pbs_fields(batch[e]) for e in sample]:
+        raise SystemExit("the PBS batch differs from the host route")
+    if not sum(map(len, host)):
+        raise SystemExit("the host route found no PBS on the sample")
+    per = th / (len(lib) * 2 * len(sample))
+    log(f"PBS host route on {len(sample)} elements near a planted primer: "
+        f"{th:.3f}s, {1e3 * per:.3f} ms an alignment ({sum(map(len, host))} "
+        f"hits, equal to the batch's field by field); all {tr['lanes']} "
+        f"lanes at that rate: {per * tr['lanes']:.0f}s (extrapolated, not "
+        f"run)")
+    kept = pbs_lane_rows(ld, elems, lib, dev, 512)
+    log(f"PBS raw rows: 512 seeded lanes equal pbs_align's (score, ustart, "
+        f"uend, vstart, edist); the filters keep {kept} of them")
+
+    step("ltrdigest -outfileprefix",
+         ["ltrdigest", "-trnas", "trna.fa", "-seqfile", "pt.fna",
+          "-outfileprefix", "ptld", "pt.sorted.gff3"], "pt.ld2.gff3")
+    if (work / "pt.ld2.gff3").read_text() != (work / "pt.ld.gff3").read_text():
+        raise SystemExit("ltrdigest -outfileprefix printed other GFF3")
+    rows = (work / "ptld_tabout.csv").read_text().splitlines()
+    if len(rows) != tr["elements"] + 1:
+        raise SystemExit(f"ptld_tabout.csv holds {len(rows)} lines for "
+                         f"{tr['elements']} elements")
+    stat = step("stat", ["stat", "pt.ld.gff3"])
+    val = step("gff3validator", ["gff3validator", "pt.ld.gff3"])
+    if val != ["input is valid GFF3"]:
+        raise SystemExit(f"gff3validator: {val}")
+    fa = step("extractfeat", ["extractfeat", "pt.ld.gff3", "-type",
+                              "LTR_retrotransposon", "-seqfile", "pt.fna"])
+    text = {f"chr_{k}": s.decode() for k, s in enumerate(seqs)}
+    got, strands = {}, {}
+    for top in nodes:
+        for fn in getattr(top, "traverse", lambda: [])():
+            if fn.type == "LTR_retrotransposon":
+                strands[(fn.seqid, fn.range.start, fn.range.end)] = fn.strand
+    for line in fa:
+        if line.startswith(">"):
+            sid, rng = line[1:].split()[1].rsplit(":", 1)
+            a, b = (int(x) for x in rng.split(".."))
+            cur = got.setdefault((sid, a, b), [])
+        else:
+            cur.append(line)
+    if set(got) != set(strands):
+        raise SystemExit("extractfeat's elements differ from ltrdigest's")
+    for (sid, a, b), parts in got.items():
+        want = text[sid][a - 1:b]
+        if strands[(sid, a, b)] == "-":
+            want = revcomp_str(want)
+        if "".join(parts) != want:
+            raise SystemExit(f"extractfeat's {sid}:{a}..{b} differs from "
+                             f"pt.fna")
+    pbs = [c for top in nodes for c in getattr(top, "traverse",
+                                               lambda: [])()
+           if c.type == "primer_binding_site"]
+    found = sum(any(c.seqid == f"chr_{planted[row, 1]}" and
+                    c.get_attribute("trna") == lib[slot][0] and
+                    abs(c.range.start - (int(planted[row, 3]) + 2)) <= 3
+                    for c in pbs) for slot, row in pairs)
+    # a planted primer can pass the PBS offset filter (0-5) only where
+    # ltrharvest's 5' LTR ends within 5 bp of the planted one
+    ends = {(fn.seqid, left.end) for fn, _, left, _, _, _ in
+            ld.ltr_elements(parse_gff3(sorted_text), mapping)}
+    near = sum(any((f"chr_{planted[row, 1]}", int(planted[row, 3]) + 1 + d)
+                   in ends for d in range(-5, 6)) for _, row in pairs)
+    if not pbs or not found:
+        raise SystemExit(f"{len(pbs)} PBS annotated, {found} planted PBS "
+                         f"found")
+    log(f"steps (s): " + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+        + f" [{smi}]; stat: {'; '.join(stat[:2])}; gff3validator: valid; "
+        f"extractfeat: {len(got)} elements equal their slices of pt.fna; "
+        f"PBS annotated on {len(pbs)} of {tr['elements']} elements, planted "
+        f"PBS found within 3 bp: {found} of {len(pairs)} ({near} of them "
+        f"have a predicted 5' LTR end within 5 bp of the planted one)")
 
 
 def main() -> int:
@@ -2378,7 +2614,7 @@ def main() -> int:
         phase_querytools(cli, work, smi)
 
     with Phase("16 ltrharvest, tirvish, ltrclustering at 32 Mbp"):
-        phase_ltr(cli, work, dev, smi)
+        pt = phase_ltr(cli, work, dev, smi)
 
     with Phase("17 packedindex, tagerator, prebwt, mergeesa, sain"):
         phase_packed(cli, work, dev, smi)
@@ -2386,6 +2622,10 @@ def main() -> int:
     with Phase("18 mesh: the multi-device layer on 8 shards of the card"):
         for kid, n in phase_mesh(cli, work, dev, smi, grid_lines).items():
             launches[kid] += n
+
+    with Phase("19 the annotator's pipeline: gff3, ltrdigest, stat, "
+               "gff3validator, extractfeat"):
+        phase_anno(cli, work, dev, smi, *pt)
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

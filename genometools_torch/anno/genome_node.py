@@ -1,20 +1,19 @@
 """Genome-node object model.
 
 The port's copy of ``genometools_tpu/anno/genome_node.py`` (JAX-free
-host code; the port imports nothing of the reference package), the
-nodes ltrharvest, tirvish and ltrclustering read and write.
+host code; the port imports nothing of the reference package).
 
 Capability equivalent of the reference GtGenomeNode class hierarchy
 (ref: src/extended/genome_node.c, feature_node.c, region_node.c,
 comment_node.c, sequence_node.c, meta_node.c, eof_node.c).
 
-Nodes are plain Python objects. Ranges are 1-based inclusive like
-GFF3.
+Nodes are plain Python objects; the pull-stream pipeline operates on
+them (see node_stream.py). Ranges are 1-based inclusive like GFF3.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -53,6 +52,9 @@ class GenomeNode:
     @property
     def end(self):
         return self.range.end if self.range else None
+
+    def accept(self, visitor):
+        raise NotImplementedError
 
 
 class FeatureNode(GenomeNode):
@@ -102,6 +104,9 @@ class FeatureNode(GenomeNode):
     def score_is_defined(self) -> bool:
         return self.score is not None
 
+    def accept(self, visitor):
+        return visitor.visit_feature(self)
+
 
 class RegionNode(GenomeNode):
     """##sequence-region directive (ref: region_node.c)."""
@@ -109,11 +114,17 @@ class RegionNode(GenomeNode):
     def __init__(self, seqid: str, start: int, end: int):
         super().__init__(seqid, Range(start, end))
 
+    def accept(self, visitor):
+        return visitor.visit_region(self)
+
 
 class CommentNode(GenomeNode):
     def __init__(self, comment: str):
         super().__init__()
         self.comment = comment
+
+    def accept(self, visitor):
+        return visitor.visit_comment(self)
 
 
 class MetaNode(GenomeNode):
@@ -124,6 +135,9 @@ class MetaNode(GenomeNode):
         self.directive = directive
         self.data = data
 
+    def accept(self, visitor):
+        return visitor.visit_meta(self)
+
 
 class SequenceNode(GenomeNode):
     """Inline FASTA from a ##FASTA section (ref: sequence_node.c)."""
@@ -132,3 +146,33 @@ class SequenceNode(GenomeNode):
         super().__init__()
         self.description = description
         self.sequence = sequence
+
+    def accept(self, visitor):
+        return visitor.visit_sequence(self)
+
+
+class EOFNode(GenomeNode):
+    def accept(self, visitor):
+        return visitor.visit_eof(self)
+
+
+class NodeVisitor:
+    """Double-dispatch base (ref: src/extended/node_visitor.c)."""
+
+    def visit_feature(self, node):
+        pass
+
+    def visit_region(self, node):
+        pass
+
+    def visit_comment(self, node):
+        pass
+
+    def visit_meta(self, node):
+        pass
+
+    def visit_sequence(self, node):
+        pass
+
+    def visit_eof(self, node):
+        pass

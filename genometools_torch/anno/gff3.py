@@ -1,7 +1,7 @@
 """GFF3 parsing and output.
 
-The port's copy of ``genometools_tpu/anno/gff3.py`` (JAX-free host
-code): the parser and writer ltrharvest, tirvish and ltrclustering use.
+The port's copy of ``genometools_tpu/anno/gff3.py`` (JAX-free
+host code; the port imports nothing of the reference package).
 
 Capability equivalent of the reference GFF3 machinery
 (ref: src/extended/gff3_parser.c (~3k LoC), gff3_visitor.c,
@@ -21,9 +21,10 @@ separator after every top-level feature group.
 from __future__ import annotations
 
 import urllib.parse
+from dataclasses import dataclass, field
 
-from .genome_node import (CommentNode, FeatureNode, GenomeNode, MetaNode,
-                          Range, RegionNode, SequenceNode)
+from .genome_node import (CommentNode, EOFNode, FeatureNode, GenomeNode,
+                          MetaNode, Range, RegionNode, SequenceNode)
 
 GFF_VERSION = "3"
 

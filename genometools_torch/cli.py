@@ -7,11 +7,23 @@ The flags are copies of the reference's parsers
 ``_add_uniquesub``, ``_add_matstat``, ``_add_ltrharvest``,
 ``_add_tirvish``, ``_add_ltrclustering``, ``_add_packedindex``,
 ``_add_mkfmindex``, ``_add_prebwt``, ``_add_tagerator``,
-``_add_mergeesa`` and ``_add_sain``), so the tools accept the same
-command lines. ``-device {cuda,cpu}`` (default cuda) picks where the
-device work runs; asking for cuda without a card fails, also for the
-tools whose work is host code. Flags the port does not support yet
-raise instead of being ignored.
+``_add_mergeesa``, ``_add_sain`` and ``_add_ltrdigest``), so the tools
+accept the same command lines. ``-device {cuda,cpu}`` (default cuda)
+picks where the device work runs; asking for cuda without a card fails,
+also for the tools whose work is host code. Flags the port does not
+support yet raise instead of being ignored.
+
+The GFF3 annotation tools are copies of the reference's too
+(``_add_gff3``, ``_add_stat``, ``_add_convert_anno``, ``_add_select``,
+``_add_feat_streams``, ``_add_scriptfilter``, ``_add_speck``,
+``_add_csa``, ``_add_eval``, ``_add_cds``, ``_add_splicesiteinfo``,
+``_add_orffinder``, ``_add_regioncov``, ``_add_seqids``,
+``_add_loccheck``, ``_add_gff3validator``, ``_add_inlineseq_split``,
+``_add_inlineseq_add``, ``_add_merge``, ``_add_uniq``,
+``_add_interfeat``, ``_add_extractfeat``, ``_add_mkfeatureindex``,
+``_add_featureindex`` and ``_add_snpper``, with their messages and
+exit codes). They run on the host, as in the reference, and take no
+``-device``.
 """
 
 from __future__ import annotations
@@ -1209,6 +1221,910 @@ def _add_sain(sub):
     return p
 
 
+# ---------------------------------------------------------------------------
+# the GFF3 annotation tools (host code: no -device) and ltrdigest
+# ---------------------------------------------------------------------------
+
+def cmd_gff3(args):
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.node_stream import add_introns_stream, sort_stream
+    nodes = []
+    for p in args.files or ["-"]:
+        text = sys.stdin.read() if p == "-" else open(p).read()
+        nodes.extend(parse_gff3(text, strict=not args.tidy))
+    if args.xrfcheck is not None:
+        from .anno.xrf import XRFChecker, XRFError, resolve_xrf_path
+        try:
+            checker = XRFChecker.from_file(
+                resolve_xrf_path(args.xrfcheck or None))
+            checker.check_nodes(nodes)
+        except XRFError as e:
+            print(f"gt gff3: error: {e}", file=sys.stderr)
+            return 1
+    stream = iter(nodes)
+    if args.addintrons:
+        stream = add_introns_stream(stream)
+    if args.sort:
+        stream = sort_stream(stream)
+    out = GFF3Writer(retainids=args.retainids).render(list(stream))
+    sys.stdout.write(out)
+    return 0
+
+
+def _add_gff3(sub):
+    p = sub.add_parser("gff3", help="parse, validate and output GFF3")
+    p.add_argument("files", nargs="*")
+    p.add_argument("-sort", action="store_true")
+    p.add_argument("-retainids", action="store_true")
+    p.add_argument("-addintrons", action="store_true")
+    p.add_argument("-tidy", action="store_true")
+    p.add_argument("-xrfcheck", nargs="?", const="", default=None,
+                   help="check Dbxref/Ontology_term attributes against "
+                        "an XRF abbreviation definition file")
+    p.set_defaults(func=cmd_gff3)
+
+
+def cmd_stat(args):
+    from .anno.gff3 import parse_gff3
+    from .anno.node_stream import FeatureStats, stat_stream
+    from .anno.genome_node import FeatureNode, RegionNode
+    stats = FeatureStats()
+    n_regions = 0
+    for p in args.files:
+        nodes = parse_gff3(open(p).read())
+        n_regions += sum(isinstance(n, RegionNode) for n in nodes)
+        list(stat_stream(nodes, stats))
+    print(f"parsed genome node DAGs: "
+          f"{stats.counts.get('gene', 0)}")
+    print(f"sequence regions: {n_regions}")
+    for t in sorted(stats.counts):
+        print(f"{t}s: {stats.counts[t]}")
+    return 0
+
+
+def _add_stat(sub):
+    p = sub.add_parser("stat", help="show statistics about GFF3 features")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_stat)
+
+
+def cmd_convert_anno(args):
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.parsers import gff3_to_gtf, parse_bed, parse_gtf
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    if args.tool == "gtf_to_gff3":
+        nodes = parse_gtf(text)
+        sys.stdout.write(GFF3Writer(retainids=True).render(nodes))
+    elif args.tool == "bed_to_gff3":
+        nodes = parse_bed(text)
+        sys.stdout.write(GFF3Writer(retainids=True).render(nodes))
+    elif args.tool == "gff3_to_gtf":
+        nodes = parse_gff3(text)
+        sys.stdout.write(gff3_to_gtf(nodes))
+    return 0
+
+
+def _add_convert_anno(sub):
+    for name in ("gtf_to_gff3", "bed_to_gff3", "gff3_to_gtf"):
+        p = sub.add_parser(name, help=f"{name.replace('_', ' ')}")
+        p.add_argument("file", nargs="?", default="-")
+        p.set_defaults(func=cmd_convert_anno, tool=name)
+
+
+def cmd_select(args):
+    from .anno.genome_node import Range
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.node_stream import select_stream
+    nodes = []
+    for pth in args.files:
+        nodes.extend(parse_gff3(open(pth).read()))
+    contain = Range(args.contain[0], args.contain[1]) if args.contain         else None
+    out = list(select_stream(
+        nodes, seqid=args.seqid, typefilter=args.hastype,
+        max_gene_length=args.maxgenelength, contain=contain))
+    if args.rule_files:
+        from .anno.script_filter import load_filter
+        preds = [load_filter(p)[1] for p in args.rule_files]
+
+        def drop(n):
+            # only feature nodes are filtered (ref: script_filter.c
+            # visits feature nodes; regions/comments pass through)
+            if not hasattr(n, "type"):
+                return False
+            return (any if args.rule_logic == "OR" else all)(
+                p(n) for p in preds)
+
+        out = [n for n in out if not drop(n)]
+    sys.stdout.write(GFF3Writer().render(out))
+    return 0
+
+
+def _add_select(sub):
+    p = sub.add_parser("select", help="filter GFF3 features")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-seqid", default=None)
+    p.add_argument("-hastype", default=None)
+    p.add_argument("-maxgenelength", type=int, default=None)
+    p.add_argument("-contain", nargs=2, type=int, default=None)
+    p.add_argument("-rule_files", nargs="+", default=None,
+                   help="Python filter scripts (filter(gn) -> drop)")
+    p.add_argument("-rule_logic", default="AND", choices=["AND", "OR"])
+    p.set_defaults(func=cmd_select)
+
+
+def _read_gff3_files(files):
+    from .anno.gff3 import parse_gff3
+    nodes = []
+    for pth in files:
+        text = sys.stdin.read() if pth == "-" else open(pth).read()
+        if not text.strip():
+            raise SystemExit(f"gt chseqids: error: GFF3 file \"{pth}\" "
+                             f"is empty")
+        nodes.extend(parse_gff3(text))
+    return nodes
+
+
+def cmd_chseqids(args):
+    from .anno.gff3 import GFF3Writer
+    from .anno.md5translate import parse_lua_mapping
+    from .anno.node_stream import chseqids_stream, sort_stream
+    try:
+        mapping = parse_lua_mapping(args.mapping_file, "chseqids")
+    except ValueError as exc:
+        print(f"gt chseqids: error: {exc}", file=sys.stderr)
+        return 1
+    nodes = _read_gff3_files(args.files or ["-"])
+    missing = [n.seqid for n in nodes
+               if getattr(n, "seqid", None) and n.seqid not in mapping]
+    if missing:
+        print(f"gt chseqids: error: chseqids[{missing[0]}] is nil "
+              f"(defined in \"{args.mapping_file}\")", file=sys.stderr)
+        return 1
+    out = chseqids_stream(iter(nodes), mapping)
+    if args.sort:
+        out = sort_stream(out)
+    text = GFF3Writer(retainids=True).render(list(out))
+    if args.o:
+        open(args.o, "w").write(text)
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def cmd_dupfeat(args):
+    from .anno.gff3 import GFF3Writer
+    from .anno.node_stream import dupfeat_stream
+    nodes = _read_gff3_files(args.files or ["-"])
+    out = list(dupfeat_stream(iter(nodes), args.dest, args.source))
+    sys.stdout.write(GFF3Writer().render(out))
+    return 0
+
+
+def cmd_mergefeat(args):
+    from .anno.gff3 import GFF3Writer
+    from .anno.node_stream import mergefeat_stream
+    nodes = _read_gff3_files(args.files or ["-"])
+    out = list(mergefeat_stream(iter(nodes)))
+    sys.stdout.write(GFF3Writer().render(out))
+    return 0
+
+
+def cmd_id_to_md5(args):
+    from .anno.gff3 import GFF3Writer
+    from .anno.md5translate import SeqCollection, id_to_md5_nodes
+    seqfiles = (args.seqfiles or []) + ([args.seqfile] if args.seqfile
+                                        else [])
+    if not seqfiles:
+        print("gt id_to_md5: error: option \"-seqfile\" or \"-seqfiles\" "
+              "is mandatory", file=sys.stderr)
+        return 1
+    seqcol = SeqCollection(seqfiles, matchdesc=args.matchdesc)
+    nodes = _read_gff3_files(args.files or ["-"])
+    try:
+        out = list(id_to_md5_nodes(iter(nodes), seqcol,
+                                   subtargetids=not args.no_subtargetids))
+    except ValueError as exc:
+        print(f"gt id_to_md5: error: {exc}", file=sys.stderr)
+        return 1
+    sys.stdout.write(GFF3Writer(retainids=True).render(out))
+    return 0
+
+
+def cmd_md5_to_id(args):
+    from .anno.gff3 import GFF3Writer
+    from .anno.md5translate import SeqCollection, md5_to_id_nodes
+    seqfiles = (args.seqfiles or []) + ([args.seqfile] if args.seqfile
+                                        else [])
+    seqcol = SeqCollection(seqfiles, matchdesc=args.matchdesc) \
+        if seqfiles else None
+    nodes = _read_gff3_files(args.files or ["-"])
+    try:
+        out = list(md5_to_id_nodes(iter(nodes), seqcol))
+    except ValueError as exc:
+        print(f"gt md5_to_id: error: {exc}", file=sys.stderr)
+        return 1
+    sys.stdout.write(GFF3Writer(retainids=True).render(out))
+    return 0
+
+
+def _add_feat_streams(sub):
+    p = sub.add_parser("chseqids",
+                       help="change sequence ids by a mapping file")
+    p.add_argument("mapping_file")
+    p.add_argument("files", nargs="*")
+    p.add_argument("-sort", action="store_true")
+    p.add_argument("-v", action="store_true")
+    p.add_argument("-o", default=None)
+    p.set_defaults(func=cmd_chseqids)
+
+    p = sub.add_parser("dupfeat",
+                       help="duplicate internal feature nodes")
+    p.add_argument("files", nargs="*")
+    p.add_argument("-dest", required=True)
+    p.add_argument("-source", required=True)
+    p.set_defaults(func=cmd_dupfeat)
+
+    p = sub.add_parser("mergefeat",
+                       help="merge adjacent features of the same type")
+    p.add_argument("files", nargs="*")
+    p.set_defaults(func=cmd_mergefeat)
+
+    for name, fn in (("id_to_md5", cmd_id_to_md5),
+                     ("md5_to_id", cmd_md5_to_id)):
+        p = sub.add_parser(
+            name, help=f"{name.replace('_', ' ')} seqid translation")
+        p.add_argument("files", nargs="*")
+        p.add_argument("-seqfile", default=None)
+        p.add_argument("-seqfiles", nargs="+", default=None)
+        p.add_argument("-matchdesc", action="store_true")
+        p.add_argument("-no_subtargetids", action="store_true")
+        p.set_defaults(func=fn)
+
+
+def cmd_scriptfilter(args):
+    """ref: src/tools/gt_scriptfilter.c — validate filter scripts and
+    show their metadata (output format of
+    testdata/script_filter_output.txt)."""
+    from .anno.script_filter import load_filter, show_metadata
+    for pth in args.files:
+        meta, _ = load_filter(pth)
+        print(show_metadata(
+            meta, scriptname=pth if args.scriptname != "false" else None,
+            oneline=args.oneline))
+    return 0
+
+
+def _add_scriptfilter(sub):
+    p = sub.add_parser("scriptfilter",
+                       help="show metadata of select filter scripts")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-scriptname", default="true")
+    p.add_argument("-oneline", action="store_true")
+    p.set_defaults(func=cmd_scriptfilter)
+
+
+def cmd_seqids(args):
+    """gt seqids (ref: src/tools/gt_seqids.c): sorted unique seqids."""
+    from .anno.genome_node import FeatureNode, RegionNode
+    from .anno.gff3 import parse_gff3
+    try:
+        text = open(args.file).read() if args.file != "-" \
+            else sys.stdin.read()
+    except FileNotFoundError as e:
+        print(f"gt seqids: error: {e.strerror}: {args.file}",
+              file=sys.stderr)
+        return 1
+    ids = set()
+    for n in parse_gff3(text):
+        if isinstance(n, (RegionNode, FeatureNode)):
+            ids.add(n.seqid)
+    for s in sorted(ids):
+        print(s)
+    return 0
+
+
+def _add_seqids(sub):
+    p = sub.add_parser("seqids", help="print sorted unique seqids of a "
+                       "GFF3 file")
+    p.add_argument("file", nargs="?", default="-")
+    p.set_defaults(func=cmd_seqids)
+
+
+def cmd_loccheck(args):
+    """gt loccheck (ref: src/tools/gt_loccheck.c,
+    extended/check_boundaries_visitor.c): warn about child ranges not
+    contained in their parents."""
+    from .anno.genome_node import FeatureNode
+    from .anno.gff3 import parse_gff3
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    for top in parse_gff3(text):
+        if not isinstance(top, FeatureNode):
+            continue
+        for parent in top.traverse():
+            for child in parent.children:
+                if child.range.start < parent.range.start or \
+                        child.range.end > parent.range.end:
+                    print(f"warning: {child.type} child range "
+                          f"{child.range.start}-{child.range.end} "
+                          f"(line {getattr(child, 'line_number', 0)}) not "
+                          f"contained in {parent.type} parent range "
+                          f"{parent.range.start}-{parent.range.end} "
+                          f"(line {getattr(parent, 'line_number', 0)})",
+                          file=sys.stderr)
+    return 0
+
+
+def _add_loccheck(sub):
+    p = sub.add_parser("loccheck", help="check parent-child range "
+                       "containment")
+    p.add_argument("file", nargs="?", default="-")
+    p.set_defaults(func=cmd_loccheck)
+
+
+def cmd_gff3validator(args):
+    """gt gff3validator (ref: src/tools/gt_gff3validator.c)."""
+    from .anno.anno_db import TypeChecker
+    from .anno.gff3 import GFF3Error, parse_gff3
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    try:
+        nodes = parse_gff3(text)
+    except GFF3Error as e:
+        print(f"gt gff3validator: error: {e}", file=sys.stderr)
+        return 1
+    if args.typecheck:
+        import os
+        path = args.typecheck
+        if not os.path.exists(path):
+            for d in os.environ.get("GT_DATA_PATH", "").split(":"):
+                cand = os.path.join(d, "obo_files", path + ".obo")
+                if d and os.path.exists(cand):
+                    path = cand
+                    break
+        try:
+            checker = TypeChecker.from_obo(open(path).read())
+        except OSError as e:
+            print(f"gt gff3validator: error: cannot open {path}: {e}",
+                  file=sys.stderr)
+            return 1
+        bad = checker.check_nodes(nodes)
+        if bad:
+            print(f"gt gff3validator: error: type \"{bad[0]}\" is not a "
+                  f"valid feature type", file=sys.stderr)
+            return 1
+    print("input is valid GFF3")
+    return 0
+
+
+def _add_gff3validator(sub):
+    p = sub.add_parser("gff3validator", help="validate GFF3 files")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-typecheck", default=None)
+    p.set_defaults(func=cmd_gff3validator)
+
+
+def cmd_inlineseq_split(args):
+    """gt inlineseq_split (ref: src/tools/gt_inlineseq_split.c): write
+    the annotation and the embedded FASTA to separate files."""
+    from .anno.genome_node import SequenceNode
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    try:
+        text = open(args.file).read() if args.file != "-" \
+            else sys.stdin.read()
+    except FileNotFoundError as e:
+        print(f"gt inlineseq_split: error: {e}", file=sys.stderr)
+        return 1
+    nodes = parse_gff3(text)
+    seqs = [n for n in nodes if isinstance(n, SequenceNode)]
+    rest = [n for n in nodes if not isinstance(n, SequenceNode)]
+    try:
+        if args.seqfile:
+            with open(args.seqfile, "w") as f:
+                for s in seqs:
+                    f.write(">" + s.description + "\n")
+                    for i in range(0, len(s.sequence), 80):
+                        f.write(s.sequence[i:i + 80] + "\n")
+        out = GFF3Writer().render(rest)
+        if args.gff3file:
+            with open(args.gff3file, "w") as f:
+                f.write(out)
+        else:
+            sys.stdout.write(out)
+    except OSError as e:
+        print(f"gt inlineseq_split: error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _add_inlineseq_split(sub):
+    p = sub.add_parser("inlineseq_split", help="split GFF3 with inline "
+                       "sequence into annotation + FASTA")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-seqfile", default=None)
+    p.add_argument("-gff3file", default=None)
+    p.set_defaults(func=cmd_inlineseq_split)
+
+
+def cmd_inlineseq_add(args):
+    """gt inlineseq_add (ref: src/tools/gt_inlineseq_add.c): append the
+    seqids' sequences as an inline ##FASTA section."""
+    from .anno.genome_node import FeatureNode, RegionNode, SequenceNode
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    nodes = parse_gff3(text)
+    mapping = _region_mapping(args)
+    seqids = []
+    for n in nodes:
+        if isinstance(n, (RegionNode, FeatureNode)) and \
+                n.seqid not in seqids:
+            seqids.append(n.seqid)
+    try:
+        for sid in seqids:
+            idx = mapping._grep_desc(sid)
+            nodes.append(SequenceNode(sid, mapping.seqs[idx]))
+    except ValueError as e:
+        print(f"gt inlineseq_add: error: {e}", file=sys.stderr)
+        return 1
+    sys.stdout.write(GFF3Writer(fasta_width=10 ** 9).render(nodes))
+    return 0
+
+
+def _add_inlineseq_add(sub):
+    p = sub.add_parser("inlineseq_add", help="add inline sequence to "
+                       "GFF3 from a sequence file")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-seqfile", required=True)
+    p.add_argument("-matchdesc", action="store_true")
+    p.add_argument("-usedesc", action="store_true")
+    p.set_defaults(func=cmd_inlineseq_add)
+
+
+def cmd_merge(args):
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.node_stream import merge_stream
+    streams = [parse_gff3(open(pth).read()) for pth in args.files]
+    sys.stdout.write(GFF3Writer().render(list(merge_stream(streams))))
+    return 0
+
+
+def _add_merge(sub):
+    p = sub.add_parser("merge", help="merge sorted GFF3 files")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_merge)
+
+
+def cmd_uniq(args):
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.node_stream import sort_stream, uniq_stream
+    nodes = []
+    for pth in args.files:
+        nodes.extend(parse_gff3(open(pth).read()))
+    out = list(uniq_stream(sort_stream(nodes)))
+    sys.stdout.write(GFF3Writer().render(out))
+    return 0
+
+
+def _add_uniq(sub):
+    p = sub.add_parser("uniq", help="remove repeated feature trees")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_uniq)
+
+
+def cmd_interfeat(args):
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.node_stream import inter_feature_stream
+    nodes = []
+    for pth in args.files:
+        nodes.extend(parse_gff3(open(pth).read()))
+    out = list(inter_feature_stream(nodes, args.outside, args.inter))
+    sys.stdout.write(GFF3Writer().render(out))
+    return 0
+
+
+def _add_interfeat(sub):
+    p = sub.add_parser("interfeat", help="add inter features")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-outside", default="exon")
+    p.add_argument("-inter", default="intron")
+    p.set_defaults(func=cmd_interfeat)
+
+
+def cmd_extractfeat(args):
+    from .anno.feature_index import extract_features
+    from .anno.gff3 import parse_gff3
+    from .core.seqio import read_seqfiles, write_fasta
+    nodes = parse_gff3(open(args.gff3).read())
+    ss = read_seqfiles(args.seqfile)
+    seqs = {d.split()[0]: s.tobytes().decode("latin-1")
+            for d, s in zip(ss.descs, ss.seqs)}
+    out = extract_features(nodes, seqs, args.type, join=args.join,
+                           translate=args.translate)
+    write_fasta(sys.stdout, [x.tobytes().decode("latin-1")
+                             for x in out.seqs], out.descs)
+    return 0
+
+
+def _add_extractfeat(sub):
+    p = sub.add_parser("extractfeat", help="extract feature sequences")
+    p.add_argument("gff3")
+    p.add_argument("-seqfile", nargs="+", required=True)
+    p.add_argument("-type", default="exon")
+    p.add_argument("-join", action="store_true")
+    p.add_argument("-translate", action="store_true")
+    p.set_defaults(func=cmd_extractfeat)
+
+
+def cmd_mkfeatureindex(args):
+    """ref: src/tools/gt_mkfeatureindex.c — persist GFF3 features into
+    an SQLite-backed feature index."""
+    from .anno.anno_db import AnnoDB
+    from .anno.gff3 import parse_gff3
+    db = AnnoDB(args.filename)
+    for pth in args.input:
+        db.add_gff3(parse_gff3(open(pth).read()))
+    db.conn.commit()
+    return 0
+
+
+def _add_mkfeatureindex(sub):
+    p = sub.add_parser("mkfeatureindex",
+                       help="create persistent feature index")
+    p.add_argument("-filename", required=True)
+    p.add_argument("input", nargs="+")
+    p.set_defaults(func=cmd_mkfeatureindex)
+
+
+def cmd_featureindex(args):
+    """ref: src/tools/gt_featureindex.c — query a persistent feature
+    index, GFF3 output."""
+    from .anno.anno_db import AnnoDB
+    from .anno.gff3 import GFF3Writer
+    db = AnnoDB(args.filename)
+    seqid = args.seqid or (db.seqids()[0] if db.seqids() else None)
+    if seqid is None:
+        return 0
+    if args.range:
+        lo, hi = (int(x) for x in args.range)
+    else:
+        lo, hi = 0, 1 << 60
+    feats = db.features_for_range(seqid, lo, hi)
+    sys.stdout.write(GFF3Writer(retainids=True).render(list(feats)))
+    return 0
+
+
+def _add_featureindex(sub):
+    p = sub.add_parser("featureindex",
+                       help="retrieve features from a feature index")
+    p.add_argument("-filename", required=True)
+    p.add_argument("-seqid", default=None)
+    p.add_argument("-range", nargs=2, default=None)
+    p.set_defaults(func=cmd_featureindex)
+
+
+def cmd_ltrdigest(args):
+    """gt ltrdigest: PPT/PBS annotation of LTR retrotransposons
+    (ref: src/tools/gt_ltrdigest.c); the PBS search runs as one batch
+    on -device."""
+    from .anno.gff3 import gff3_to_string, parse_gff3
+    from .device import resolve_device
+    from .ltr.ltrdigest import LTRdigestParams, ltrdigest
+    dev = resolve_device(args.device)     # also without -trnas
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    try:
+        nodes = parse_gff3(text)
+        mapping = _region_mapping(args)
+        trna_lib = None
+        if args.trnas:
+            from .core.seqio import read_seqfile
+            ss = read_seqfile(args.trnas)
+            trna_lib = [(d.split()[0], s.tobytes().decode())
+                        for d, s in zip(ss.descs, ss.seqs)]
+        params = LTRdigestParams(
+            ppt_len=(args.pptlen[0], args.pptlen[1]),
+            ubox_len=(args.uboxlen[0], args.uboxlen[1]),
+            ppt_radius=args.pptradius,
+            max_ubox_dist=args.maxgaplen,
+            pbs_alilen=(args.pbsalilen[0], args.pbsalilen[1]),
+            pbs_offsetlen=(args.pbsoffset[0], args.pbsoffset[1]),
+            pbs_trnaoffsetlen=(args.pbstrnaoffset[0],
+                               args.pbstrnaoffset[1]),
+            pbs_max_edist=args.pbsmaxedist, pbs_radius=args.pbsradius)
+        ltrdigest(nodes, mapping, trna_lib, params, device=dev)
+        if args.outfileprefix:
+            from .ltr.ltrdigest import ltrdigest_file_out
+            ltrdigest_file_out(nodes, mapping, args.outfileprefix,
+                               seqnamelen=args.seqnamelen)
+    except ValueError as e:
+        print(f"gt ltrdigest: error: {e}", file=sys.stderr)
+        return 1
+    sys.stdout.write(gff3_to_string(nodes, retainids=True))
+    return 0
+
+
+def _add_ltrdigest(sub):
+    p = sub.add_parser("ltrdigest",
+                       help="annotate PPT/PBS in LTR retrotransposons")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-seqfile")
+    p.add_argument("-encseq")
+    p.add_argument("-matchdesc", action="store_true")
+    p.add_argument("-usedesc", action="store_true")
+    p.add_argument("-trnas")
+    p.add_argument("-pptlen", type=int, nargs=2, default=[8, 30])
+    p.add_argument("-uboxlen", type=int, nargs=2, default=[3, 30])
+    p.add_argument("-pptradius", type=int, default=30)
+    p.add_argument("-maxgaplen", type=int, default=0)
+    p.add_argument("-pbsalilen", type=int, nargs=2, default=[11, 30])
+    p.add_argument("-pbsoffset", type=int, nargs=2, default=[0, 5])
+    p.add_argument("-pbstrnaoffset", type=int, nargs=2, default=[0, 5])
+    p.add_argument("-pbsmaxedist", type=int, default=1)
+    p.add_argument("-pbsradius", type=int, default=30)
+    p.add_argument("-outfileprefix", default=None,
+                   help="prefix for tabular + FASTA output files")
+    p.add_argument("-seqnamelen", type=int, default=20)
+    return p
+
+
+def _region_mapping(args):
+    from .anno.cds import RegionMapping
+    if getattr(args, "encseq", None):
+        return RegionMapping.from_encseq(args.encseq,
+                                         matchdesc=args.matchdesc,
+                                         usedesc=args.usedesc)
+    return RegionMapping.from_file(args.seqfile, matchdesc=args.matchdesc,
+                                   usedesc=args.usedesc)
+
+
+def cmd_speck(args):
+    """ref: src/tools/gt_speck.c — check annotations against a spec
+    (Python describe/it rules; see anno/speck.py)."""
+    from .anno.gff3 import parse_gff3
+    from .anno.speck import run_speck
+    nodes = []
+    for pth in args.files:
+        nodes.extend(parse_gff3(open(pth).read()))
+    res = run_speck(args.specfile, nodes)
+    print(res.report())
+    if res.failures and args.failhard:
+        raise SystemExit(1)
+    return 0
+
+
+def _add_speck(sub):
+    p = sub.add_parser("speck", help="check annotations against a spec")
+    p.add_argument("-specfile", required=True)
+    p.add_argument("-failhard", action="store_true")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_speck)
+
+
+def cmd_csa(args):
+    from .anno.csa import csa
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    nodes = csa(parse_gff3(text), join_length=args.join_length)
+    sys.stdout.write(GFF3Writer().render(nodes))
+    return 0
+
+
+def _add_csa(sub):
+    p = sub.add_parser("csa", help="consensus spliced alignments")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-join-length", dest="join_length", type=int, default=300)
+    p.set_defaults(func=cmd_csa)
+
+
+def cmd_eval(args):
+    """gt eval (ref: src/tools/gt_eval.c)."""
+    from .anno.eval import evaluate
+    from .anno.gff3 import parse_gff3
+    reality = parse_gff3(open(args.reality).read()
+                         if args.reality != "-" else sys.stdin.read())
+    prediction = parse_gff3(open(args.prediction).read()
+                            if args.prediction != "-" else sys.stdin.read())
+    try:
+        sys.stdout.write(evaluate(
+            reality, prediction, nuceval=args.nuc == "yes",
+            evalLTR=args.ltr, LTRdelta=args.ltrdelta,
+            reality_name=args.reality, prediction_name=args.prediction))
+    except ValueError as e:
+        print(f"gt eval: error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _add_eval(sub):
+    p = sub.add_parser("eval", help="evaluate gene predictions against "
+                       "reference annotation")
+    p.add_argument("reality")
+    p.add_argument("prediction")
+    p.add_argument("-nuc", choices=["yes", "no"], default="yes")
+    p.add_argument("-ltr", action="store_true")
+    p.add_argument("-ltrdelta", type=int, default=20)
+    p.set_defaults(func=cmd_eval)
+
+
+def cmd_cds(args):
+    """gt cds (ref: src/tools/gt_cds.c)."""
+    from .anno.cds import RegionMapping, add_cds
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    try:
+        mapping = RegionMapping.from_file(args.seqfile,
+                                          matchdesc=args.matchdesc,
+                                          usedesc=args.usedesc)
+        nodes = add_cds(parse_gff3(text), mapping,
+                        minorflen=args.minorflen,
+                        start_codon=args.startcodon == "yes",
+                        final_stop_codon=args.finalstopcodon == "yes",
+                        filename=args.file)
+    except ValueError as e:
+        print(f"gt cds: error: {e}", file=sys.stderr)
+        return 1
+    sys.stdout.write(GFF3Writer().render(nodes))
+    return 0
+
+
+def _add_cds(sub):
+    p = sub.add_parser("cds", help="add CDS features to exon features")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-seqfile", required=True)
+    p.add_argument("-matchdesc", action="store_true")
+    p.add_argument("-usedesc", action="store_true")
+    p.add_argument("-minorflen", type=int, default=64)
+    p.add_argument("-startcodon", nargs="?", const="yes",
+                   choices=["yes", "no"], default="no")
+    p.add_argument("-finalstopcodon", nargs="?", const="yes",
+                   choices=["yes", "no"], default="no")
+    p.set_defaults(func=cmd_cds)
+
+
+def cmd_splicesiteinfo(args):
+    """gt splicesiteinfo (ref: src/tools/gt_splicesiteinfo.c)."""
+    from .anno.gff3 import parse_gff3
+    from .anno.splicesite import splice_site_info
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    try:
+        report = splice_site_info(parse_gff3(text), _region_mapping(args),
+                                  addintrons=args.addintrons)
+    except ValueError as e:
+        print(f"gt splicesiteinfo: error: {e}", file=sys.stderr)
+        return 1
+    if report is None:
+        print("warning: input file(s) contained no intron, use option "
+              "-addintrons to add introns automatically", file=sys.stderr)
+    else:
+        sys.stdout.write(report)
+    return 0
+
+
+def _add_splicesiteinfo(sub):
+    p = sub.add_parser("splicesiteinfo",
+                       help="show splice site info for introns")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-seqfile")
+    p.add_argument("-encseq")
+    p.add_argument("-matchdesc", action="store_true")
+    p.add_argument("-usedesc", action="store_true")
+    p.add_argument("-addintrons", action="store_true")
+    p.set_defaults(func=cmd_splicesiteinfo)
+
+
+def cmd_orffinder(args):
+    """gt orffinder (ref: src/tools/gt_orffinder.c)."""
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.orffinder import find_orfs
+    if args.min < 30:
+        print("gt orffinder: error: argument to option \"-min\" must be "
+              "an integer >= 30", file=sys.stderr)
+        return 1
+    if args.min > args.max:
+        print("gt orffinder: error: Value for -min must be larger than "
+              "-max", file=sys.stderr)
+        return 1
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    try:
+        nodes = find_orfs(parse_gff3(text), _region_mapping(args),
+                          types=set(args.types) if args.types else None,
+                          min_len=args.min, max_len=args.max,
+                          all_orfs=args.allorfs)
+    except ValueError as e:
+        print(f"gt orffinder: error: {e}", file=sys.stderr)
+        return 1
+    sys.stdout.write(GFF3Writer().render(nodes))
+    return 0
+
+
+def _add_orffinder(sub):
+    p = sub.add_parser("orffinder", help="find ORFs in annotated features")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-types", nargs="+", default=None)
+    p.add_argument("-allorfs", action="store_true")
+    p.add_argument("-min", type=int, default=30)
+    p.add_argument("-max", type=int, default=10000)
+    p.add_argument("-seqfile")
+    p.add_argument("-encseq")
+    p.add_argument("-matchdesc", action="store_true")
+    p.add_argument("-usedesc", action="store_true")
+    p.set_defaults(func=cmd_orffinder)
+
+
+def cmd_regioncov(args):
+    """gt dev regioncov (ref: src/tools/gt_regioncov.c)."""
+    from .anno.gff3 import parse_gff3
+    from .anno.regioncov import region_coverage
+    text = open(args.file).read() if args.file != "-" else sys.stdin.read()
+    sys.stdout.write(region_coverage(parse_gff3(text),
+                                     args.maxfeaturedist))
+    return 0
+
+
+def _add_regioncov(sub):
+    p = sub.add_parser("regioncov", help="show region parts covered by "
+                       "features")
+    p.add_argument("file", nargs="?", default="-")
+    p.add_argument("-maxfeaturedist", type=int, default=0)
+    p.set_defaults(func=cmd_regioncov)
+
+
+def cmd_snpper(args):
+    """gt snpper (ref: src/tools/gt_snpper.c)."""
+    from .anno.cds import RegionMapping
+    from .anno.gff3 import GFF3Writer, parse_gff3
+    from .anno.node_stream import sort_stream
+    from .anno.snpper import snp_annotator_stream
+    from .core.trans_table import TransTable
+
+    try:
+        tt = TransTable(args.trans_table)
+    except ValueError as e:
+        print(f"gt snpper: error: {e}", file=sys.stderr)
+        return 1
+    gff_nodes = list(sort_stream(parse_gff3(open(args.gff3_file).read())))
+    gvf_text = open(args.gvf_file).read() if args.gvf_file != "-" \
+        else sys.stdin.read()
+    gvf_nodes = list(sort_stream(parse_gff3(gvf_text)))
+    try:
+        if args.encseq:
+            rmap = RegionMapping.from_encseq(args.encseq,
+                                             matchdesc=args.matchdesc,
+                                             usedesc=args.usedesc)
+        elif args.seqfile:
+            rmap = RegionMapping.from_file(args.seqfile,
+                                           matchdesc=args.matchdesc,
+                                           usedesc=args.usedesc)
+        else:
+            print("gt snpper: error: option \"-seqfile\" or \"-encseq\" "
+                  "is mandatory", file=sys.stderr)
+            return 1
+        out = list(snp_annotator_stream(gvf_nodes, gff_nodes, rmap, tt))
+    except ValueError as e:
+        print(f"gt snpper: error: {e}", file=sys.stderr)
+        return 1
+    text = GFF3Writer().render(out)
+    if args.o:
+        with open(args.o, "w") as fp:
+            fp.write(text)
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def _add_snpper(sub):
+    p = sub.add_parser(
+        "snpper", help="annotate SNPs according to their effect on the "
+        "genome as given by a genomic annotation")
+    p.add_argument("gff3_file")
+    p.add_argument("gvf_file", nargs="?", default="-")
+    p.add_argument("-trans_table", type=int, default=1,
+                   help="NCBI translation table number")
+    p.add_argument("-seqfile", default=None)
+    p.add_argument("-encseq", default=None)
+    p.add_argument("-matchdesc", action="store_true")
+    p.add_argument("-usedesc", action="store_true")
+    p.add_argument("-o", default=None)
+    p.set_defaults(func=cmd_snpper)
+
+
 def _add_device(p, func) -> None:
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                    help="where the device work runs (default cuda; "
@@ -1232,6 +2148,7 @@ def build_parser() -> argparse.ArgumentParser:
                       (_add_ltrharvest, cmd_ltrharvest),
                       (_add_tirvish, cmd_tirvish),
                       (_add_ltrclustering, cmd_ltrclustering),
+                      (_add_ltrdigest, cmd_ltrdigest),
                       (_add_mkfmindex, cmd_mkfmindex),
                       (_add_prebwt, cmd_prebwt),
                       (_add_tagerator, cmd_tagerator),
@@ -1243,9 +2160,23 @@ def build_parser() -> argparse.ArgumentParser:
                       (_add_packedindex, cmd_packedindex)):
         for p in add(sub):          # each subcommand's parser
             _add_device(p, func)
+    # the annotation tools run on the host and take no -device
+    for add in (_add_gff3, _add_stat, _add_convert_anno, _add_select,
+                _add_feat_streams, _add_scriptfilter, _add_speck, _add_csa,
+                _add_eval, _add_cds, _add_splicesiteinfo, _add_orffinder,
+                _add_regioncov, _add_seqids, _add_loccheck,
+                _add_gff3validator, _add_inlineseq_split,
+                _add_inlineseq_add, _add_merge, _add_uniq, _add_interfeat,
+                _add_extractfeat, _add_mkfeatureindex, _add_featureindex,
+                _add_snpper):
+        add(sub)
     return parser
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.func(args)
+    try:
+        return args.func(args)
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 0

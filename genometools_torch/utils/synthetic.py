@@ -15,6 +15,11 @@ flanks are longer than K1's windows.
 (four 8,000,000 bp sequences, 400 LTR elements of 40 families and 200
 TIR elements, numpy seed 2027: the size of a plant chromosome) and the small genomes of the ltr
 CPU tests, with the planted coordinates beside them.
+
+``trna_library`` builds the tRNA library of chip_smoke.py's phase 19
+(200 tRNA-like sequences of 72-90 bp, numpy seed 2029) for ltrdigest's
+PBS search on that genome: some of them end in the reverse complement
+of the 18 bp after a planted element's 5' LTR, then ``cca``.
 """
 
 from __future__ import annotations
@@ -162,6 +167,39 @@ def planted_transposons(seed: int = 2027, nseq: int = 4,
             busy[s][p:p + 100] = True
     planted = np.asarray(sorted(rows), np.int64).reshape(-1, 7)
     return [t.tobytes() for t in text], planted
+
+
+_COMPLEMENT = bytes.maketrans(b"acgt", b"tgca")
+
+
+def trna_library(seqs: list[bytes], planted: np.ndarray, seed: int = 2029,
+                 n: int = 200, planted_n: int = 100,
+                 length: tuple[int, int] = (72, 90)):
+    """A library of `n` random tRNA-like sequences of `length` bp, each
+    ending in ``cca``, made from numpy.random.default_rng(seed). In
+    `planted_n` of them (at random places in the library) the 18 nt
+    before the ``cca`` are the reverse complement of the 18 bp right
+    after the 5' LTR of a planted LTR element (distinct elements, drawn
+    from `planted`'s kind-0 rows): ltrdigest finds a primer binding site
+    there.
+
+    Returns [(name, sequence)] (lower-case acgt str) and the planted
+    pairs as int64 rows (library index, row of `planted`)."""
+    rng = np.random.default_rng(seed)
+    ltrs = np.flatnonzero(planted[:, 0] == 0)
+    rows = rng.choice(ltrs, min(planted_n, ltrs.size), replace=False)
+    slots = rng.choice(n, rows.size, replace=False)
+    bodies = [_ACGT[rng.integers(0, 4, int(rng.integers(length[0],
+                                                      length[1] + 1)) - 3)]
+              for _ in range(n)]
+    for slot, row in zip(slots, rows):
+        seq, end = int(planted[row, 1]), int(planted[row, 3])
+        pbs = seqs[seq][end + 1:end + 19]
+        bodies[slot][-18:] = np.frombuffer(pbs.translate(_COMPLEMENT)[::-1],
+                                           np.uint8)
+    lib = [(f"trna{k:03d}", b.tobytes().decode() + "cca")
+           for k, b in enumerate(bodies)]
+    return lib, np.stack([slots, rows], 1).astype(np.int64)
 
 
 def write_fasta(seqs: list[bytes], path: Path, name: str = "seq") -> None:

@@ -4,9 +4,10 @@ suffixerator (in memory, with -parts and with -dist), suffixerator_e2e,
 seed_extend (with -parts, -dist, -maxmat and -estim), repfind, tallymer mkindex|search,
 readjoiner prefilter|overlap|assembly, genomediff, ltrharvest, tirvish,
 ltrclustering, packedindex mkindex, prebwt, tagerator (-esa and -pck),
-mergeesa and sain run in a process where both are blocked, printing
-what the reference's CLI prints for the same arguments and writing the
-same files."""
+mergeesa, sain, ltrdigest (with -outfileprefix) and the annotation tools
+(gff3 -sort, gff3validator, stat, extractfeat) run in a process where
+both are blocked, printing what the reference's CLI prints for the same
+arguments and writing the same files."""
 
 import ast
 import contextlib
@@ -89,7 +90,19 @@ COMMANDS = [
     ["tagerator", "-q", "tags.fna", "-pck", "idx", "-e", "1", "-best"],
     ["mergeesa", "-indexname", "mrg", "-ii", "idx", "ltr"],
     ["sain", "-esa", "idx", "-check", "-suf", "-indexname", "sn"],
+    ["ltrharvest", "-index", "ltr", "-gff3", "lhs.gff3", "-seqids",
+     "-tabout", "no"],
+    ["gff3", "-sort", "-retainids", "lhs.gff3"],
+    ["gff3validator", "lhs.gff3"],
+    ["stat", "lhs.gff3"],
+    ["ltrdigest", "-trnas", "trna.fa", "-seqfile", "ltr.fa",
+     "-outfileprefix", "ld", "lhs.gff3"],
+    ["extractfeat", "lhs.gff3", "-type", "LTR_retrotransposon", "-seqfile",
+     "ltr.fa"],
 ]
+# the annotation tools take no -device in the port and no --cpu in the
+# reference; ltrdigest takes -device in the port only
+HOST_TOOLS = ("gff3", "gff3validator", "stat", "extractfeat")
 # files the commands write: the reference writes its own under _ref names
 WRITTEN = {"tyr": ("mer", "mct", "tyr.json"),
            "rj": ("reads.npz", "spm", "contigs.fas"),
@@ -97,13 +110,16 @@ WRITTEN = {"tyr": ("mer", "mct", "tyr.json"),
            "mrg": ("suf", "lcp", "prj"),
            "sn": ("suf",)}
 # files named whole on the command line, written or read under _ref names
-FILES = ("lh.fas", "lh.inner.fas", "lh.gff3")
+FILES = ("lh.fas", "lh.inner.fas", "lh.gff3", "lhs.gff3")
+# ltrdigest -outfileprefix: the reference writes <prefix>_ref_<name>
+PREFIXED = {"ld": ("tabout.csv", "5ltr.fas", "3ltr.fas", "complete.fas",
+                   "ppt.fas", "pbs.fas")}
 # tools whose output is files only
 QUIET = ("readjoiner", "prebwt", "sain", "packedindex", "mergeesa")
 
 
 def _ref_arg(a: str) -> str:
-    if a in WRITTEN:
+    if a in WRITTEN or a in PREFIXED:
         return a + "_ref"
     if a in FILES:
         stem, dot, ext = a.partition(".")
@@ -127,10 +143,13 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
     (tmp_path / "reads.fna").write_bytes(READS.read_bytes())
     (tmp_path / "tags.fna").write_bytes(TAGS.read_bytes())
     from genometools_torch.utils.synthetic import (planted_transposons,
-                                                   write_fasta)
-    write_fasta(planted_transposons(seed=3, nseq=2, length=40000, ltr=2,
-                                    tir=2, wildcard_runs=2)[0],
-                tmp_path / "ltr.fa", "chr")
+                                                   trna_library, write_fasta)
+    seqs, planted = planted_transposons(seed=3, nseq=2, length=40000, ltr=2,
+                                        tir=2, wildcard_runs=2)
+    write_fasta(seqs, tmp_path / "ltr.fa", "chr")
+    with open(tmp_path / "trna.fa", "w") as f:
+        for name, s in trna_library(seqs, planted, n=12, planted_n=2)[0]:
+            f.write(f">{name}\n{s}\n")
     script = (
         "import sys\n"
         + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED) +
@@ -140,7 +159,8 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
         "from genometools_torch.index.fastpipe import suffixerator_e2e\n"
         "from genometools_torch.utils import progressbar, spacepeak\n"
         f"for argv in {COMMANDS!r}:\n"
-        "    main(argv + ['-device', 'cpu'])\n"
+        f"    main(argv + ([] if argv[0] in {HOST_TOOLS!r} else "
+        "['-device', 'cpu']))\n"
         "    print('#--', flush=True)\n"
         "suffixerator_e2e(['in.fa'], 'e2e', device='cpu')\n"
         f"assert all(sys.modules[m] is None for m in {BLOCKED!r})\n")
@@ -163,9 +183,11 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), \
                     contextlib.redirect_stderr(io.StringIO()):
-                # readjoiner's parsers take no --cpu
+                # readjoiner's, ltrdigest's and the annotation tools'
+                # parsers take no --cpu
                 ref_main([_ref_arg(a) for a in argv]
-                         + ([] if argv[0] == "readjoiner" else ["--cpu"]))
+                         + ([] if argv[0] in ("readjoiner", "ltrdigest")
+                            + HOST_TOOLS else ["--cpu"]))
             assert text == buf.getvalue(), argv
             assert text or argv[0] in QUIET or "-indexname" in argv or \
                 "-tabout" in argv
@@ -178,5 +200,13 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
     for name in FILES:
         assert (tmp_path / name).read_bytes() == \
             (tmp_path / _ref_arg(name)).read_bytes(), name
+    for name, exts in PREFIXED.items():
+        for ext in exts:
+            assert (tmp_path / f"{name}_{ext}").read_bytes() == \
+                (tmp_path / f"{name}_ref_{ext}").read_bytes(), (name, ext)
+    assert b"primer_binding_site" in \
+        got[COMMANDS.index(["ltrdigest", "-trnas", "trna.fa", "-seqfile",
+                            "ltr.fa", "-outfileprefix", "ld",
+                            "lhs.gff3"])].encode()
     assert b"LTR_retrotransposon" in (tmp_path / "lh.gff3").read_bytes()
     assert b"contig_0" in (tmp_path / "rj.contigs.fas").read_bytes()
