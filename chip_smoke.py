@@ -177,6 +177,23 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      must print "input is valid GFF3". Printed: each step's seconds, the
      PPT search's, the PBS batch's (fill, traceback, host filters), the
      lanes, the peak device memory, and the planted PBS found within 3 bp.
+  20. the sequence tools and BASELINE config 4 ("gt seed_extend
+     all-vs-all xdrop alignment on shreddered Duplicate.fna read set"),
+     through the port's CLI: (a) encseq decode of the golden
+     Duplicate.fna index, whose suffixerator -suf -lcp -tis must write
+     gt's .suf and .lcp, shredder with the reference's defaults
+     (minlength 300, maxlength 700, overlap 0, coverage 1, seed 0),
+     suffixerator -tis of the reads and seed_extend -extendxdrop -l 20
+     -minidentity 80 all against all; (b) the same on at1MB's decoded
+     golden at -coverage 2 (about 1.5 Mbp of reads) with -l 100
+     -minidentity 90; each run's lines must equal the fused host
+     engine's, be more than none, and launch K3 (its launches join the
+     kernels line; printed: the xdrop lanes by route, K3's ms by CUDA
+     events around each call, its bound, the host share); (c) seqorder
+     -sort and -revsort of at1MB's FASTA on the card, equal to the order
+     of the sequence starts in gt's suftab; (d) dev sortbench -impl
+     device -size 67108864 -runs 3 -verify; (e) graft.entry("cuda"), its
+     SA equal to build_suffix_array's.
 
 Each kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s and its integer operations over
@@ -2099,6 +2116,165 @@ def phase_anno(cli, work: Path, dev, smi: str, seqs, planted) -> None:
         f"have a predicted 5' LTR end within 5 bp of the planted one)")
 
 
+def timed_k3(xb):
+    """Wrap xdrop_batch's K3 call with CUDA events: ({"ms", "calls"}, a
+    function that undoes the wrap). The ms are each xdrop_full call on
+    the card: the lane sort before the launch, and the launch."""
+    orig = xb.xdrop_full
+    acc = {"ms": 0.0, "calls": 0}
+
+    def wrapped(*a, **k):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(*a, **k)
+        e.record()
+        e.synchronize()
+        acc["ms"] += s.elapsed_time(e)
+        acc["calls"] += 1
+        return out
+
+    xb.xdrop_full = wrapped
+    return acc, lambda: setattr(xb, "xdrop_full", orig)
+
+
+def config4(cli, name: str, fasta: str, shred: list, minlen: str,
+            minid: str, smi: str) -> int:
+    """BASELINE config 4 through the port's CLI in the cwd: shredder with
+    `shred`, suffixerator -tis of the reads, seed_extend -extendxdrop all
+    against all, its lines held against the fused host engine's (exact,
+    as phase 11 holds them); returns K3's launches in seed_extend."""
+    from genometools_torch.index.esa import Encseq
+    from genometools_torch.match.seed_extend import (SeedExtendParams,
+                                                     seed_extend)
+    from genometools_torch.ops import xdrop_batch as xb
+    from genometools_torch.ops import xdrop_full as xf
+    lines, dt = run_cli(cli, ["shredder"] + shred + [fasta])
+    Path(f"{name}.fna").write_text("\n".join(lines) + "\n")
+    nreads = sum(1 for x in lines if x.startswith(">"))
+    nsym = sum(len(x) for x in lines if not x.startswith(">"))
+    log(f"{name}: shredder {' '.join(shred) or '(defaults)'}: {nreads} "
+        f"reads, {nsym} bp in {dt:.3f}s")
+    _, dt = run_cli(cli, ["suffixerator", "-db", f"{name}.fna", "-indexname",
+                          name, "-tis"])
+    log(f"{name}: suffixerator -tis {dt:.3f}s")
+    reset_counts()
+    xf.work.update(slot_gens=0, bytes=0)
+    acc, undo = timed_k3(xb)
+    try:
+        lines, dt = run_cli(cli, ["seed_extend", "-ii", name, "-extendxdrop",
+                                  "-l", minlen, "-minidentity", minid])
+    finally:
+        undo()
+    k3 = xf.launches
+    b = xf.work["bytes"] / HBM_BYTES_PER_S * 1e3
+    o = xf.work["slot_gens"] * OPS_PER_SLOT_GEN["K3"] / INT32_OPS_PER_S * 1e3
+    log(f"{name}: seed_extend -extendxdrop -l {minlen} -minidentity {minid}: "
+        f"{len(lines)} matches in {dt:.3f}s [{smi}]; K3 {k3} launches, "
+        f"{acc['ms']:.3f} ms over {acc['calls']} xdrop_full calls (CUDA "
+        f"events), bound {max(b, o):.4f} ms (bytes {b:.4f}, operations "
+        f"{o:.4f}); xdrop_lanes: {xdrop_lanes(xb)}; host share "
+        f"{host_share(xb):.4f}")
+    p = SeedExtendParams(minidentity=int(minid),
+                         userdefinedleastlength=int(minlen),
+                         extension="xdrop")
+    t0 = time.perf_counter()
+    fused = [m.line() for m in seed_extend(Encseq.load(name), None, p,
+                                           engine="fused")]
+    log(f"{name}: fused host engine {len(fused)} matches in "
+        f"{time.perf_counter() - t0:.3f}s")
+    if lines != fused or not lines:
+        raise SystemExit(f"config 4 ({name}): seed_extend's lines differ "
+                         "from the fused engine's, or there are none")
+    if k3 == 0:
+        raise SystemExit(f"config 4 ({name}): K3 was launched no time")
+    return k3
+
+
+def suftab_seq_order(db: str, enc) -> list[str]:
+    """The descriptions in the order of the sequence-start suffixes in
+    gt's own suftab of a golden index."""
+    sa = np.frombuffer(golden_bytes(db, "suf"), np.uint64).astype(np.int64)
+    starts = np.array([int(enc.seq_startpos(i))
+                       for i in range(enc.num_sequences)], np.int64)
+    hit = np.isin(sa, starts)
+    seqnum = np.searchsorted(starts, sa[hit])
+    return [enc.descs[i] for i in seqnum]
+
+
+def phase_seqtools(cli, work: Path, dev, smi: str) -> int:
+    """Phase 20: the sequence tools and BASELINE config 4 through the
+    port's CLI on the card; returns K3's launches in config 4."""
+    from genometools_torch import graft
+    from genometools_torch.index.esa import Encseq
+    from genometools_torch.index.suffix import build_suffix_array
+    old = os.getcwd()
+    d = work / "p20"
+    d.mkdir()
+    os.chdir(d)
+    try:
+        # (a) config 4 as its source states it: Duplicate.fna's reads
+        lines, dt = run_cli(cli, ["encseq", "decode",
+                                  str(GOLDEN / "Duplicate.fna" / "idx")])
+        Path("Duplicate.fna").write_text("\n".join(lines) + "\n")
+        log(f"encseq decode Duplicate: {len(lines)} lines in {dt:.3f}s")
+        _, dt = run_cli(cli, ["suffixerator", "-db", "Duplicate.fna",
+                              "-indexname", "dup", "-suf", "-lcp", "-tis"])
+        for ext in ("suf", "lcp"):
+            if Path(f"dup.{ext}").read_bytes() != \
+                    golden_bytes("Duplicate.fna", ext):
+                raise SystemExit(f"the decoded Duplicate.fna's .{ext} "
+                                 "differs from the golden")
+        log(f"suffixerator of the decoded Duplicate.fna: .suf/.lcp equal "
+            f"the goldens ({dt:.3f}s)")
+        k3 = config4(cli, "dupreads", "Duplicate.fna", [], "20", "80", smi)
+        # (b) at a size its users would call real: at1MB x 2
+        t0 = time.perf_counter()
+        lines, dt = run_cli(cli, ["encseq", "decode", str(AT1MB)])
+        Path("at1MB.fna").write_text("\n".join(lines) + "\n")
+        log(f"encseq decode at1MB: {len(lines)} lines in {dt:.3f}s")
+        k3 += config4(cli, "atreads", "at1MB.fna",
+                      ["-coverage", "2", "-minlength", "300", "-maxlength",
+                       "700"], "100", "90", smi)
+        # (c) seqorder on the card against gt's suftab
+        at1 = Encseq.load(str(AT1MB))
+        want = suftab_seq_order("at1MB", at1)
+        for mode, order in (("sort", want), ("revsort", want[::-1])):
+            lines, dt = run_cli(cli, ["seqorder", f"-{mode}", "at1MB.fna"])
+            got = [x[1:] for x in lines if x.startswith(">")]
+            if got != order or len(got) != at1.num_sequences:
+                raise SystemExit(f"seqorder -{mode} differs from the order "
+                                 "of the sequence starts in gt's suftab")
+            log(f"seqorder -{mode} at1MB.fna: {len(got)} sequences in "
+                f"{dt:.3f}s [{smi}], equal to gt's suftab order")
+        # (d) dev sortbench on the card
+        lines, dt = run_cli(cli, ["dev", "sortbench", "-impl", "device",
+                                  "-size", "67108864", "-runs", "3",
+                                  "-verify"])
+        for x in lines:
+            log(f"sortbench: {x}")
+        if sum(x.startswith("# TIME device sort of 67108864 values ")
+               for x in lines) != 3 or "# verified" not in lines:
+            raise SystemExit("dev sortbench printed no 3 times or did not "
+                             "verify")
+        log(f"dev sortbench: {dt:.3f}s in all (numpy verification "
+            f"included) [{smi}]")
+        # (e) the flagship step
+        fn, (keys,) = graft.entry("cuda")
+        ms, sa = cuda_ms(lambda: fn(keys), warm=False)
+        want_sa, _ = build_suffix_array(keys, with_lcp=False, device=dev)
+        if not torch.equal(sa.long(), want_sa.long()):
+            raise SystemExit("graft.entry's SA differs from "
+                             "build_suffix_array's")
+        log(f"graft.entry: {keys.numel()} keys, fn {ms:.3f} ms (first "
+            f"call) [{smi}], equal to build_suffix_array")
+        log(f"phase 20 inputs made and run in "
+            f"{time.perf_counter() - t0:.1f}s after (a)")
+    finally:
+        os.chdir(old)
+    return k3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--gens", default="",
@@ -2626,6 +2802,9 @@ def main() -> int:
     with Phase("19 the annotator's pipeline: gff3, ltrdigest, stat, "
                "gff3validator, extractfeat"):
         phase_anno(cli, work, dev, smi, *pt)
+
+    with Phase("20 sequence tools and BASELINE config 4"):
+        launches["K3"] += phase_seqtools(cli, work, dev, smi)
 
     src = {"K1": ("greedy_full", "genometools_torch/csrc/greedy_full.cu",
                   "genometools_tpu/ops/greedy_pallas.py:531"),

@@ -15,6 +15,8 @@ CUDA tensor each kernel wrapper launches its hand-written kernel
 version.
 """
 
+__version__ = "0.1.0"
+
 from .device import resolve_device
 
 __all__ = ["resolve_device"]

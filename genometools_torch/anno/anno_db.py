@@ -229,13 +229,12 @@ class SamAlignment:
 
 
 def parse_bam(path: str):
-    """Iterate SamAlignment records from a BAM file (BGZF gzip). The
-    BAM reader is assembly/hop.py's ``alignments_from_bam``, which the
-    port has not taken yet: it comes with the slice of ``hop`` and
-    ``sambam`` (ROADMAP.md, Queue 1)."""
-    raise NotImplementedError(
-        f"cannot read BAM file {path!r}: the port's BAM reader "
-        "(assembly/hop.py) comes with the hop/sambam slice")
+    """Iterate SamAlignment records from a BAM file (BGZF gzip; see
+    assembly/hop.py alignments_from_bam for the record layout)."""
+    from ..assembly.hop import alignments_from_bam
+    for qname, flag, rname, pos, mapq, cigar, seq, _qual in \
+            alignments_from_bam(path):
+        yield SamAlignment(qname, flag, rname, pos, mapq, cigar, seq)
 
 
 def parse_sam(text: str):

@@ -1,28 +1,22 @@
 """gt-style command line for the port: ``python -m genometools_torch``.
 
-The flags are copies of the reference's parsers
-(``genometools_tpu/cli.py`` ``_add_suffixerator``, ``_add_seed_extend``,
-``_add_repfind``, ``_add_tallymer``, ``_add_readjoiner``,
-``_add_encseq2spm``, ``_add_genomediff``, ``_add_shulengthdist``,
-``_add_uniquesub``, ``_add_matstat``, ``_add_ltrharvest``,
-``_add_tirvish``, ``_add_ltrclustering``, ``_add_packedindex``,
-``_add_mkfmindex``, ``_add_prebwt``, ``_add_tagerator``,
-``_add_mergeesa``, ``_add_sain`` and ``_add_ltrdigest``), so the tools
-accept the same command lines. ``-device {cuda,cpu}`` (default cuda)
-picks where the device work runs; asking for cuda without a card fails,
-also for the tools whose work is host code. Flags the port does not
-support yet raise instead of being ignored.
+Every command of the reference's CLI (``genometools_tpu/cli.py``, 85
+top-level commands and the eight ``dev`` subcommands) with its flags,
+messages and exit codes, so the tools accept the same command lines.
+``main`` is the reference's driver too: the option constraints
+(``_tool_constraints``, exit 2 through ``parser.error``),
+``$GT_ENV_OPTIONS`` (``-spacepeak``, ``-showtime``), ``-createman DIR``,
+``-i`` and a first argument that names a script file.
 
-The GFF3 annotation tools are copies of the reference's too
-(``_add_gff3``, ``_add_stat``, ``_add_convert_anno``, ``_add_select``,
-``_add_feat_streams``, ``_add_scriptfilter``, ``_add_speck``,
-``_add_csa``, ``_add_eval``, ``_add_cds``, ``_add_splicesiteinfo``,
-``_add_orffinder``, ``_add_regioncov``, ``_add_seqids``,
-``_add_loccheck``, ``_add_gff3validator``, ``_add_inlineseq_split``,
-``_add_inlineseq_add``, ``_add_merge``, ``_add_uniq``,
-``_add_interfeat``, ``_add_extractfeat``, ``_add_mkfeatureindex``,
-``_add_featureindex`` and ``_add_snpper``, with their messages and
-exit codes). They run on the host, as in the reference, and take no
+The tools whose work reaches the device (the suffixerator and seed_extend
+paths, repfind, tallymer, readjoiner, encseq2spm, the ESA consumers, the
+LTR tools, the packed index, ltrdigest, ``seqorder`` and ``dev
+sortbench``) take ``-device {cuda,cpu}`` (default cuda) where the
+reference takes ``--cpu``; asking for cuda without a card fails, also
+for the tools whose work is host code. Flags the port does not support
+yet raise instead of being ignored. The host tools (the GFF3 annotation
+layer, the sequence tools, hop, sketch, the match tools and the other
+``dev`` tools) run on the host, as in the reference, and take no
 ``-device``.
 """
 
@@ -30,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 
 import numpy as np
@@ -230,8 +225,6 @@ def cmd_seed_extend(args):
         parts=args.parts,
         pick=tuple(int(x) for x in args.pick.split(","))
         if args.pick else None)
-    if args.pick and args.parts <= 1:
-        raise SystemExit('option "-pick" requires option "-parts"')
     if args.estim:
         # host code over the host extension route, as in the reference
         from .match.estim import seed_extend_estim
@@ -2125,6 +2118,1431 @@ def _add_snpper(sub):
     p.set_defaults(func=cmd_snpper)
 
 
+def cmd_encseq(args):
+    from .core.encseq import Encseq
+    if args.sub == "encode":
+        enc = Encseq.from_files(args.files)
+        enc.save(args.indexname or args.files[0])
+    elif args.sub == "decode":
+        enc = Encseq.load(args.indexname)
+        from .core.seqio import write_fasta
+        seqs = [enc.alphabet.decode(
+            enc.codes[enc.seq_startpos(i):enc.seq_endpos(i) + 1]).upper()
+            for i in range(enc.num_sequences)]
+        write_fasta(sys.stdout, seqs, enc.descs)
+    elif args.sub == "info":
+        enc = Encseq.load(args.indexname)
+        print(f"total length: {enc.total_length}")
+        print(f"number of sequences: {enc.num_sequences}")
+        print(f"special characters: {enc.special_ranges.total}")
+        print(f"special ranges: {enc.special_ranges.count}")
+        print(f"alphabet: {'dna' if enc.alphabet.is_dna() else 'protein'}")
+    return 0
+
+
+def _add_encseq(sub):
+    p = sub.add_parser("encseq", help="encode/decode/inspect sequence sets")
+    sp = p.add_subparsers(dest="sub", required=True)
+    pe = sp.add_parser("encode")
+    pe.add_argument("files", nargs="+")
+    pe.add_argument("-indexname", default=None)
+    pd = sp.add_parser("decode")
+    pd.add_argument("indexname")
+    pi = sp.add_parser("info")
+    pi.add_argument("indexname")
+    p.set_defaults(func=cmd_encseq)
+
+
+def cmd_seqstat(args):
+    from .core.seqio import read_seqfiles
+    s = read_seqfiles(args.files)
+    lens = np.array([len(x) for x in s.seqs], np.int64)
+    total = int(lens.sum())
+    print(f"# number of contigs:     {len(lens)}")
+    print(f"# total contigs length:  {total}")
+    print(f"# mean contig size:      {lens.mean():.2f}")
+    print(f"# contig size first quartile: {int(np.percentile(lens, 25))}")
+    print(f"# median contig size:         {int(np.median(lens))}")
+    print(f"# contig size third quartile: {int(np.percentile(lens, 75))}")
+    print(f"# longest contig:             {int(lens.max())}")
+    print(f"# shortest contig:            {int(lens.min())}")
+    # N50: largest L s.t. contigs >= L cover half the total
+    sorted_lens = np.sort(lens)[::-1]
+    csum = np.cumsum(sorted_lens)
+    n50 = int(sorted_lens[np.searchsorted(csum, total / 2)])
+    print(f"# contigs > 500 nt:           {(lens > 500).sum()} "
+          f"({100.0 * (lens > 500).sum() / len(lens):.2f} %)")
+    print(f"# N50:                {n50}")
+    l50 = int(np.searchsorted(csum, total / 2)) + 1
+    print(f"# L50:                {l50}")
+    return 0
+
+
+def _add_seqstat(sub):
+    p = sub.add_parser("seqstat", help="sequence set statistics")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_seqstat)
+
+
+def cmd_condenseq(args):
+    """ref: src/tools/gt_condenseq*.c — compress / extract / info /
+    search over redundancy-compressed sequence sets."""
+    from .core.alphabet import dna_alphabet
+    from .core.seqio import read_seqfiles
+    from .utils import condenseq as cq
+    if args.sub == "compress":
+        ss = read_seqfiles(args.files)
+        store = cq.compress(ss, kmersize=args.kmersize)
+        cq.save(store, args.indexname)
+        st = cq.info(store)
+        print(f"# compressed {st['number of sequences']} sequences, "
+              f"ratio {st['compression ratio']}", file=sys.stderr)
+        return 0
+    store = cq.load(args.archive)
+    alpha = dna_alphabet()
+    if args.sub == "extract":
+        idxs = ([int(x) for x in args.sequences] if args.sequences
+                else range(store.num_sequences))
+        for i in idxs:
+            print(f">{store.descs[i]}")
+            s = alpha.decode(store.extract(i))
+            for j in range(0, len(s), 60):
+                print(s[j:j + 60])
+    elif args.sub == "info":
+        for k, v in cq.info(store).items():
+            print(f"{k}: {v}")
+    elif args.sub == "search":
+        qs = read_seqfiles([args.query])
+        for qi, q in enumerate(qs.seqs):
+            enc = alpha.encode(q)
+            for seqnum, pos in cq.search(store, enc):
+                print(f"{qi}\t{seqnum}\t{pos}\t{enc.size}")
+    return 0
+
+
+def _add_condenseq(sub):
+    p = sub.add_parser("condenseq",
+                       help="redundancy-compressed sequence sets")
+    sp = p.add_subparsers(dest="sub", required=True)
+    pc = sp.add_parser("compress")
+    pc.add_argument("-indexname", required=True)
+    pc.add_argument("-kmersize", type=int, default=16)
+    pc.add_argument("files", nargs="+")
+    pe = sp.add_parser("extract")
+    pe.add_argument("-sequences", nargs="+", default=None)
+    pe.add_argument("archive")
+    pi = sp.add_parser("info")
+    pi.add_argument("archive")
+    ps = sp.add_parser("search")
+    ps.add_argument("-query", required=True)
+    ps.add_argument("archive")
+    p.set_defaults(func=cmd_condenseq)
+
+
+def _show_fasta(out, width: int, file=None):
+    """gt_fasta_show_entry semantics: width 0 means one line."""
+    file = file or sys.stdout
+    for desc, seq in zip(out.descs, out.seqs):
+        s = seq.tobytes().decode("latin-1") if hasattr(seq, "tobytes") \
+            else seq
+        file.write(">" + desc + "\n")
+        if width:
+            for i in range(0, len(s), width):
+                file.write(s[i:i + width] + "\n")
+            if not s:
+                file.write("\n")
+        else:
+            file.write(s + "\n")
+
+
+def cmd_seqtool(args):
+    from .core.seqio import read_seqfiles
+    from .utils import seqtools
+    files = args.files or ["-"]
+    if "-" in files:
+        import tempfile
+        data = sys.stdin.buffer.read()
+        tf = tempfile.NamedTemporaryFile(suffix=".fas", delete=False)
+        tf.write(data)
+        tf.close()
+        files = [tf.name if f == "-" else f for f in files]
+    try:
+        s = read_seqfiles(files)
+    except (ValueError, OSError) as exc:
+        print(f"gt {args.tool}: error: {exc}", file=sys.stderr)
+        return 1
+    width = getattr(args, "width", 0)
+    if args.tool == "extractseq":
+        if args.keys:
+            keys_text = sys.stdin.read() if args.keys == "-" \
+                else open(args.keys).read()
+            try:
+                for header, seq in seqtools.extractseq_keys(s, keys_text):
+                    from .core.seqio import SeqSet
+                    import numpy as _np
+                    one = SeqSet(
+                        seqs=[_np.frombuffer(seq.encode("latin-1"),
+                                             _np.uint8)],
+                        descs=[header])
+                    _show_fasta(one, width)
+            except ValueError as exc:
+                print(f"gt extractseq: error: {exc}", file=sys.stderr)
+                return 1
+            return 0
+        if (args.frompos is None) != (args.topos is None):
+            print("gt extractseq: error: option \"-frompos\" requires "
+                  "option \"-topos\"", file=sys.stderr)
+            return 1
+        if args.frompos is not None and args.frompos > args.topos:
+            print("gt extractseq: error: argument to option '-frompos' "
+                  "must be <= argument to option '-topos'", file=sys.stderr)
+            return 1
+        try:
+            out = seqtools.extractseq(s, args.frompos, args.topos,
+                                      args.match)
+        except ValueError as exc:
+            print(f"gt extractseq: error: {exc}", file=sys.stderr)
+            return 1
+        except re.error as exc:
+            print(f"gt extractseq: error: invalid pattern: {exc}",
+                  file=sys.stderr)
+            return 1
+    elif args.tool == "shredder":
+        if args.minlength > args.maxlength:
+            print("gt shredder: error: -minlength must be <= than "
+                  "-maxlength", file=sys.stderr)
+            return 1
+        out = seqtools.shredder(s, args.minlength, args.maxlength,
+                                args.overlap, args.coverage,
+                                sample_probability=args.sample,
+                                clip_desc=args.clipdesc)
+    elif args.tool == "sequniq":
+        out, dups = seqtools.sequniq(s, rev=args.rev)
+        n = len(s.seqs)
+        print(f"# {dups} out of {n} sequences have been removed "
+              f"({dups / n * 100.0:.3f}%)", file=sys.stderr)
+    elif args.tool == "seqfilter":
+        out, filtered, total = seqtools.seqfilter(
+            s, args.minlength, args.maxlength, args.maxseqnum,
+            step=args.step, sample_prob=args.sample,
+            nowildcards=args.nowildcards)
+        print(f"# {filtered} out of {total} sequences have been removed "
+              f"({filtered / total * 100.0:.3f}%)", file=sys.stderr)
+    elif args.tool == "simreads":
+        out = seqtools.simreads(s, num=args.num, length=args.length,
+                                coverage=args.coverage)
+    elif args.tool == "mutate":
+        out = seqtools.mutate(s, args.rate)
+        out.descs = [d + f" [mutated with rate {int(args.rate)}]"
+                     for d in out.descs]
+    elif args.tool == "seqtranslate":
+        from .core.seqio import SeqSet
+        for desc, seq in zip(s.descs, s.seqs):
+            text = seq.tobytes().decode("latin-1")
+            if len(text) < 3:
+                print(f"warning: sequence '{desc}' is shorter than codon "
+                      f"length of 3, skipping", file=sys.stderr)
+                continue
+            frames = seqtools.translate_all_frames(text)
+            for f, t in enumerate(frames):
+                if not t:
+                    continue
+                strand = "+" if f < 3 else "-"
+                one = SeqSet(seqs=[t], descs=[
+                    f"{desc} ({f % 3 + 1}{strand})"])
+                _show_fasta(one, args.fastawidth)
+        return 0
+    elif args.tool == "fingerprint":
+        fps = seqtools.fingerprints(s)
+        if args.check:
+            from collections import Counter
+            have = Counter(fps)
+            text = sys.stdin.read() if args.check == "-" \
+                else open(args.check).read()
+            failed = False
+            for line in text.splitlines():
+                line = line.strip()
+                if not line:
+                    continue
+                if have.get(line, 0) > 0:
+                    have[line] -= 1
+                else:
+                    print(f"{line} only in checklist")
+                    failed = True
+            for fp, cnt in sorted(have.items()):
+                for _ in range(cnt):
+                    print(f"{fp} only in sequence_file(s)")
+                    failed = True
+            if failed:
+                print("gt fingerprint: error: fingerprint comparison "
+                      "failed", file=sys.stderr)
+                return 1
+            return 0
+        if args.duplicates:
+            from collections import Counter
+            cnt = Counter(fps)
+            dups = 0
+            for fp, c in sorted(cnt.items()):
+                if c > 1:
+                    print(f"{fp}\t{c}")
+                    dups += c - 1
+            if dups:
+                n = len(fps)
+                print(f"gt fingerprint: error: duplicates found: {dups} "
+                      f"out of {n} ({dups / n * 100.0:.3f}%)",
+                      file=sys.stderr)
+                return 1
+            return 0
+        if args.extract:
+            from .core.seqio import SeqSet
+            hit = SeqSet()
+            for fp, seq, desc in zip(fps, s.seqs, s.descs):
+                if fp == args.extract:
+                    hit.seqs.append(seq)
+                    hit.descs.append(desc)
+            _show_fasta(hit, width)
+            return 0
+        for fp in fps:
+            print(fp)
+        return 0
+    else:
+        raise SystemExit(f"unknown tool {args.tool}")
+    _show_fasta(out, width)
+    return 0
+
+
+def _add_seqtools(sub):
+    common = {
+        "extractseq": "extract sequences from sequence file(s)",
+        "shredder": "shred sequences into consecutive pieces",
+        "sequniq": "filter out repeated sequences",
+        "seqfilter": "filter sequence files",
+        "simreads": "simulate sequencing reads",
+        "mutate": "mutate the given sequences",
+        "seqmutate": "mutate the given sequences",
+        "seqtranslate": "translate a nucleotide sequence",
+        "fingerprint": "compute MD5 fingerprints per sequence",
+    }
+    for name, helptext in common.items():
+        p = sub.add_parser(name, help=helptext)
+        p.add_argument("files", nargs="*")
+        if name == "extractseq":
+            p.add_argument("-frompos", type=int, default=None)
+            p.add_argument("-topos", type=int, default=None)
+            p.add_argument("-match", default=None)
+            p.add_argument("-keys", default=None)
+            p.add_argument("-width", type=int, default=0)
+        elif name == "shredder":
+            p.add_argument("-coverage", type=int, default=1)
+            p.add_argument("-minlength", type=int, default=300)
+            p.add_argument("-maxlength", type=int, default=700)
+            p.add_argument("-overlap", type=int, default=0)
+            p.add_argument("-sample", type=float, default=1.0)
+            p.add_argument("-clipdesc", action="store_true")
+            p.add_argument("-width", type=int, default=0)
+        elif name == "sequniq":
+            p.add_argument("-rev", action="store_true")
+            p.add_argument("-seqit", action="store_true")
+            p.add_argument("-v", action="store_true")
+            p.add_argument("-width", type=int, default=0)
+        elif name == "seqfilter":
+            p.add_argument("-minlength", type=int, default=None)
+            p.add_argument("-maxlength", type=int, default=None)
+            p.add_argument("-maxseqnum", type=int, default=None)
+            p.add_argument("-sample", type=float, default=1.0)
+            p.add_argument("-step", type=int, default=1)
+            p.add_argument("-nowildcards", action="store_true")
+            p.add_argument("-width", type=int, default=0)
+        elif name == "simreads":
+            p.add_argument("-num", type=int, default=100)
+            p.add_argument("-length", type=int, default=100)
+            p.add_argument("-coverage", type=float, default=None)
+            p.add_argument("-width", type=int, default=0)
+        elif name in ("mutate", "seqmutate"):
+            p.add_argument("-rate", type=float, default=1.0)
+            p.add_argument("-width", type=int, default=0)
+        elif name == "seqtranslate":
+            p.add_argument("-reverse", default="yes")
+            p.add_argument("-fastawidth", type=int, default=60)
+        elif name == "fingerprint":
+            p.add_argument("-check", default=None)
+            p.add_argument("-duplicates", action="store_true")
+            p.add_argument("-extract", default=None)
+            p.add_argument("-width", type=int, default=0)
+        p.set_defaults(func=cmd_seqtool,
+                       tool="mutate" if name == "seqmutate" else name)
+
+
+def cmd_seqorder(args):
+    """gt seqorder (ref: src/tools/gt_seqorder.c); -sort/-revsort run
+    the suffix engine on -device."""
+    from .core.encseq import Encseq
+    from .device import resolve_device
+    from .utils.seqorder import render_fasta, seqorder_permutation
+    modes = [m for m in ("sort", "revsort", "sorthdr", "sorthdrnum",
+                         "sortlength", "invert", "shuffle")
+             if getattr(args, m)]
+    if len(modes) != 1:
+        print("gt seqorder: error: exactly one of -invert|-sort|-revsort|"
+              "-shuffle|-sorthdr|-sorthdrnum|-sortlength is mandatory",
+              file=sys.stderr)
+        return 1
+    dev = resolve_device(args.device)
+    try:
+        encseq = Encseq.load(args.index)
+    except (FileNotFoundError, OSError):
+        from .core.seqio import read_seqfile
+        encseq = Encseq.from_seqset(read_seqfile(args.index))
+    sys.stdout.write(render_fasta(encseq, seqorder_permutation(
+        encseq, modes[0], device=dev)))
+    return 0
+
+
+def _add_seqorder(sub):
+    p = sub.add_parser("seqorder", help="output sequences of an encseq "
+                       "in a given order")
+    p.add_argument("index")
+    for m in ("sort", "revsort", "sorthdr", "sorthdrnum", "sortlength",
+              "invert", "shuffle"):
+        p.add_argument(f"-{m}", action="store_true")
+    return p
+
+
+def cmd_magicmatch(args):
+    """gt dev magicmatch (ref: src/tools/gt_magicmatch.c): md5
+    fingerprint + description per sequence."""
+    from .core.seqio import read_seqfiles
+    from .utils import seqtools
+    ss = read_seqfiles(args.f)
+    for fp, desc in zip(seqtools.fingerprints(ss), ss.descs):
+        print(f"{fp}\t{desc}")
+    return 0
+
+
+def _add_magicmatch(sub):
+    p = sub.add_parser("magicmatch", help="match sequences by md5 "
+                       "fingerprint")
+    p.add_argument("-t", action="store_true")
+    p.add_argument("-f", nargs="+", required=True)
+    p.set_defaults(func=cmd_magicmatch)
+
+
+def cmd_seqtransform(args):
+    """gt seqtransform (ref: src/tools/gt_seqtransform.c)."""
+    from .core.seqio import read_seqfiles
+    ss = read_seqfiles(args.files)
+    protein_chars = set(b"EFILPQZefilpqz*")
+    for desc, seq in zip(ss.descs, ss.seqs):
+        s = seq.tobytes().decode("latin-1")
+        if args.addstopaminos and s and not s.endswith("*") and \
+                (set(seq.tobytes()) & protein_chars):
+            s += "*"
+        print(">" + desc)
+        if args.width:
+            for i in range(0, len(s), args.width):
+                print(s[i:i + args.width])
+        else:
+            print(s)
+    return 0
+
+
+def _add_seqtransform(sub):
+    p = sub.add_parser("seqtransform", help="transform sequence files")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-addstopaminos", action="store_true")
+    p.add_argument("-width", type=int, default=0)
+    p.set_defaults(func=cmd_seqtransform)
+
+
+def cmd_fastq_sample(args):
+    """gt fastq_sample (ref: src/tools/gt_fastq_sample.c): randomly
+    sample fastq entries until the requested total length is reached."""
+    import random
+    from .core.seqio import read_seqfile
+    if args.length <= 0:
+        print("gt fastq_sample: error: length must be a positive integer",
+              file=sys.stderr)
+        return 1
+    seqs, descs, quals = [], [], []
+    for path in args.files:
+        ss = read_seqfile(path)
+        seqs += [s.tobytes().decode("latin-1") for s in ss.seqs]
+        descs += ss.descs
+        quals += ([q.tobytes().decode("latin-1") for q in ss.quals]
+                  if ss.quals is not None else [""] * len(ss.seqs))
+    if not seqs:
+        print("gt fastq_sample: error: file does not contain any "
+              "sequence data", file=sys.stderr)
+        return 1
+    total = sum(len(s) for s in seqs)
+    if total < args.length:
+        print(f"gt fastq_sample: error: requested length {args.length} "
+              f"exceeds length of sequences ({total})", file=sys.stderr)
+        return 1
+    rng = random.Random()
+    n = len(seqs)
+    chosen = set()
+    len_count = 0
+    pos = rng.randrange(n) if n > 1 else 0
+    while len_count < args.length:
+        if rng.randrange(total) < args.length and pos not in chosen:
+            chosen.add(pos)
+            len_count += len(seqs[pos])
+        pos = (pos + 1) % n
+    print(f"total length {len_count} from {len(chosen)} entries")
+    for i in sorted(chosen):
+        print(f"@{descs[i]}")
+        print(seqs[i])
+        print("+")
+        print(quals[i])
+    return 0
+
+
+def _add_fastq_sample(sub):
+    p = sub.add_parser("fastq_sample", help="randomly sample fastq "
+                       "entries up to a total length")
+    p.add_argument("-length", type=int, required=True)
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_fastq_sample)
+
+
+def cmd_convertseq(args):
+    """ref: src/tools/gt_convertseq.c — read sequence files, write
+    FASTA (optionally reverse-complemented)."""
+    from .core.seqio import read_seqfile
+    import numpy as np
+    comp = bytes.maketrans(b"ACGTacgt", b"TGCAtgca")
+    for fn in args.files:
+        ss = read_seqfile(fn)
+        if args.showfilelengthvalues:
+            import os
+            print(f"# file \"{fn}\" {os.path.getsize(fn)} bytes")
+        for desc, seq in zip(ss.descs, ss.seqs):
+            if args.noseq:
+                continue
+            s = bytes(seq)
+            if args.r:
+                s = s[::-1].translate(comp)
+            print(f">{desc}")
+            w = args.fastawidth or 60
+            for i in range(0, len(s), w):
+                print(s[i:i + w].decode("latin-1"))
+    return 0
+
+
+def _add_convertseq(sub):
+    p = sub.add_parser("convertseq", help="parse and convert sequences")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-r", action="store_true", help="reverse complement")
+    p.add_argument("-noseq", action="store_true")
+    p.add_argument("-showfilelengthvalues", action="store_true")
+    p.add_argument("-fastawidth", type=int, default=0)
+    p.add_argument("-v", action="store_true")
+    p.set_defaults(func=cmd_convertseq)
+
+
+def cmd_seq(args):
+    """ref: src/tools/gt_seq.c — bioseq access tool."""
+    from .core.seqio import read_seqfile
+    for fn in args.files:
+        ss = read_seqfile(fn)
+        if args.stat:
+            total = sum(len(s) for s in ss.seqs)
+            print(f"# number of sequences: {len(ss.seqs)}")
+            print(f"# total length: {total}")
+            if ss.seqs:
+                print(f"# mean size: {total / len(ss.seqs):.2f}")
+        elif args.showseqnum is not None:
+            i = args.showseqnum - 1
+            if not 0 <= i < len(ss.seqs):
+                raise SystemExit(
+                    f"genometools_torch seq: error: sequence number {args.showseqnum} "
+                    f"out of range")
+            print(f">{ss.descs[i]}")
+            s = bytes(ss.seqs[i]).decode("latin-1")
+            for j in range(0, len(s), args.width or 60):
+                print(s[j:j + (args.width or 60)])
+        else:
+            for desc, seq in zip(ss.descs, ss.seqs):
+                if args.showfasta:
+                    print(f">{desc}")
+                    s = bytes(seq).decode("latin-1")
+                    for j in range(0, len(s), args.width or 60):
+                        print(s[j:j + (args.width or 60)])
+                else:
+                    print(f"{desc}: {len(seq)}")
+    return 0
+
+
+def _add_seq(sub):
+    p = sub.add_parser("seq", help="bioseq access tool")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-showfasta", action="store_true")
+    p.add_argument("-showseqnum", type=int, default=None)
+    p.add_argument("-stat", action="store_true")
+    p.add_argument("-width", type=int, default=0)
+    p.set_defaults(func=cmd_seq)
+
+
+def cmd_splitfasta(args):
+    """ref: src/tools/gt_splitfasta.c — split a FASTA file at sequence
+    boundaries into <file>.<N> pieces of ~targetsize, or one file per
+    description with -splitdesc."""
+    import gzip
+    import os
+    fn = args.file
+    gz = fn.endswith(".gz")
+    op = (lambda p, m: gzip.open(p, m)) if gz else open
+    raw = op(fn, "rb").read()
+    if not raw:
+        raise SystemExit(f'genometools_torch splitfasta: error: file "{fn}" is empty')
+    if not raw.startswith(b">"):
+        raise SystemExit("genometools_torch splitfasta: error: file is not in "
+                         "FASTA format")
+    recs = []
+    start = 0
+    for i in range(1, len(raw)):
+        if raw[i:i + 1] == b">" and raw[i - 1:i] == b"\n":
+            recs.append(raw[start:i])
+            start = i
+    recs.append(raw[start:])
+
+    def xopen(path):
+        if os.path.exists(path) and not args.force:
+            raise SystemExit(f'genometools_torch splitfasta: error: file "{path}" '
+                             f'exists already')
+        return op(path, "wb")
+
+    if args.splitdesc:
+        suffix = os.path.splitext(fn[:-3] if gz else fn)[1]
+        for rec in recs:
+            desc = rec.split(b"\n", 1)[0][1:].split()[0].decode()
+            out = xopen(os.path.join(args.splitdesc, desc + suffix))
+            out.write(rec)
+            out.close()
+        return 0
+    if args.numfiles:
+        maxsize = max(1, len(raw) // args.numfiles)
+    else:
+        maxsize = args.targetsize << 20
+    base = fn[:-3] if gz else fn
+    ext = ".gz" if gz else ""
+    filenum, count = 0, 0
+    cur = None
+    for rec in recs:
+        if cur is None or (count + len(rec) > maxsize and count > 0
+                           and filenum < (args.numfiles or 1 << 30)):
+            if cur:
+                cur.close()
+            filenum += 1
+            cur = xopen(f"{base}.{filenum}{ext}")
+            count = 0
+        cur.write(rec)
+        count += len(rec)
+    if cur:
+        cur.close()
+    return 0
+
+
+def _add_splitfasta(sub):
+    p = sub.add_parser("splitfasta", help="split FASTA file")
+    p.add_argument("file")
+    p.add_argument("-numfiles", type=int, default=0)
+    p.add_argument("-targetsize", type=int, default=50, help="in MB")
+    p.add_argument("-splitdesc", default=None,
+                   help="directory for per-description files")
+    p.add_argument("-width", type=int, default=0)
+    p.add_argument("-force", action="store_true")
+    p.set_defaults(func=cmd_splitfasta)
+
+
+def cmd_compreads(args):
+    """gt compreads (ref: src/tools/gt_compreads.c + hcr.c): lossless
+    FASTQ read compression.  The container is an own compact format
+    (zlib-compressed records) rather than the reference's HCR
+    bit-packing; round trips are exact."""
+    import zlib
+    from .core.seqio import read_seqfile
+    if args.sub == "compress":
+        blobs = []
+        for path in args.files:
+            ss = read_seqfile(path)
+            for i, (d, s) in enumerate(zip(ss.descs, ss.seqs)):
+                q = (ss.quals[i].tobytes().decode("latin-1")
+                     if ss.quals is not None else "")
+                blobs.append("\x00".join(
+                    [d, s.tobytes().decode("latin-1"), q]))
+        payload = zlib.compress("\x01".join(blobs).encode("latin-1"), 9)
+        with open(args.name + ".hcr", "wb") as f:
+            f.write(b"GTHCR1\n" + payload)
+    elif args.sub == "decompress":
+        data = open(args.file + ".hcr", "rb").read()
+        assert data[:7] == b"GTHCR1\n", "not a compreads archive"
+        text = zlib.decompress(data[7:]).decode("latin-1")
+        name = args.name or args.file
+        with open(name + ".fastq", "w") as f:
+            for blob in text.split("\x01"):
+                d, s, q = blob.split("\x00")
+                f.write(f"@{d}\n{s}\n+\n{q}\n")
+    return 0
+
+
+def _add_compreads(sub):
+    p = sub.add_parser("compreads", help="compress/decompress short "
+                       "reads")
+    sp = p.add_subparsers(dest="sub", required=True)
+    pc = sp.add_parser("compress")
+    pc.add_argument("-files", nargs="+", required=True)
+    pc.add_argument("-name", required=True)
+    pd = sp.add_parser("decompress")
+    pd.add_argument("-file", required=True)
+    pd.add_argument("-name", default=None)
+    p.set_defaults(func=cmd_compreads)
+
+
+def cmd_hop(args):
+    """gt hop (ref: src/tools/gt_hop.c)."""
+    import os
+    from .assembly.hop import (HopParams, alignments_from_bam,
+                               alignments_from_sam, hop_correct,
+                               hop_output)
+    from .core.seqio import read_seqfile
+    if args.aggressive:
+        params = HopParams.aggressive()
+    elif args.moderate:
+        params = HopParams.moderate()
+    elif args.conservative:
+        params = HopParams.conservative()
+    elif args.expert:
+        params = HopParams(hmin=args.hmin, read_hmin=args.read_hmin,
+                           qmax=args.qmax, altmax=args.altmax,
+                           refmin=args.cogmin, mapqmin=args.mapqmin,
+                           covmin=args.covmin, clenmax=args.clenmax,
+                           allow_partial=args.allow_partial,
+                           allow_multiple=args.allow_multiple)
+    else:
+        print("gt hop: error: Select correction mode: -aggressive, "
+              "-moderate, -conservative or -expert", file=sys.stderr)
+        return 1
+    try:
+        from .core.encseq import Encseq
+        enc = Encseq.load(args.c)
+        refs = []
+        for i in range(enc.num_sequences):
+            start = int(enc.seq_startpos(i))
+            refs.append((enc.descs[i], enc.extract_decoded(
+                start, start + int(enc.seq_length(i)) - 1).lower()))
+    except (FileNotFoundError, OSError):
+        ss = read_seqfile(args.c)
+        refs = [(d, s.tobytes().decode("latin-1").lower())
+                for d, s in zip(ss.descs, ss.seqs)]
+    if args.sam or args.map.endswith(".sam"):
+        alns = alignments_from_sam(open(args.map).read())
+    else:
+        alns = alignments_from_bam(args.map)
+    result = hop_correct(refs, alns, params)
+    for path in args.reads:
+        ss = read_seqfile(path)
+        out = hop_output(result, ss.descs, None)
+        with open("hop_" + os.path.basename(path), "w") as f:
+            f.write(out)
+    return 0
+
+
+def _add_hop(sub):
+    p = sub.add_parser("hop", help="homopolymer error correction")
+    p.add_argument("-c", required=True, help="cognate sequence "
+                   "(encseq index or fasta)")
+    p.add_argument("-map", required=True, help="SAM/BAM mapping")
+    p.add_argument("-sam", action="store_true")
+    p.add_argument("-reads", nargs="+", required=True)
+    p.add_argument("-aggressive", action="store_true")
+    p.add_argument("-moderate", action="store_true")
+    p.add_argument("-conservative", action="store_true")
+    p.add_argument("-expert", action="store_true")
+    p.add_argument("-hmin", type=int, default=3)
+    p.add_argument("-read-hmin", dest="read_hmin", type=int, default=2)
+    p.add_argument("-qmax", type=int, default=120)
+    p.add_argument("-altmax", type=float, default=0.8)
+    p.add_argument("-cogmin", type=float, default=0.1)
+    p.add_argument("-mapqmin", type=int, default=21)
+    p.add_argument("-covmin", type=int, default=1)
+    p.add_argument("-clenmax", type=int, default=None)
+    p.add_argument("-allow-partial", dest="allow_partial",
+                   action="store_true")
+    p.add_argument("-allow-multiple", dest="allow_multiple",
+                   action="store_true")
+    p.set_defaults(func=cmd_hop)
+
+
+def cmd_sambam(args):
+    """gt dev sambam (ref: src/tools/gt_sambam.c): extract alignment
+    fields from SAM/BAM."""
+    from .assembly.hop import alignments_from_bam, alignments_from_sam
+    from .core.seqio import _read_bytes
+    if args.sam:
+        text = _read_bytes(args.file).decode("latin-1")
+        if args.idxfile is None and not text.startswith("@"):
+            print("gt sambam: error: SAM file has no header and no "
+                  "-idxfile given", file=sys.stderr)
+            return 1
+        alns = alignments_from_sam(text)
+    else:
+        alns = alignments_from_bam(args.file)
+    for qname, flag, _rname, _pos, _mapq, cigar, seq, qual in alns:
+        rname = _rname
+        print(f"{qname}\t{flag}\t{rname}\t{cigar}\t{seq.lower()}\t{qual}")
+    return 0
+
+
+def _add_sambam(sub):
+    p = sub.add_parser("sambam", help="extract alignments from SAM/BAM")
+    p.add_argument("file")
+    p.add_argument("-sam", action="store_true")
+    p.add_argument("-idxfile", default=None)
+    p.set_defaults(func=cmd_sambam)
+
+
+def cmd_sketch(args):
+    from .anno.gff3 import parse_gff3
+    from .anno.sketch import sketch
+    nodes = []
+    for pth in args.files:
+        nodes.extend(parse_gff3(open(pth).read()))
+    style = None
+    if args.style:
+        from .anno.style import load_style
+        style = load_style(args.style)
+    fmt = args.format
+    if fmt == "auto":
+        ext = args.out.rsplit(".", 1)[-1].lower()
+        fmt = ext if ext in ("svg", "png", "pdf") else "svg"
+    ii = None
+    if args.showrecmaps:
+        from .anno.sketch import ImageInfo
+        ii = ImageInfo()
+    out = sketch(nodes, seqid=args.seqid, width=args.width, fmt=fmt,
+                 style=style, image_info=ii)
+    mode = "w" if isinstance(out, str) else "wb"
+    with open(args.out, mode) as f:
+        f.write(out)
+    if ii is not None:
+        # ref: gt_sketch.c:449-458 — "<coords>, <type>" per rec map
+        for rm in ii.rec_maps:
+            print(f"{rm.html_imagemap_coords()}, {rm.node.type}")
+    return 0
+
+
+def _add_sketch(sub):
+    p = sub.add_parser("sketch",
+                       help="draw annotation diagrams (SVG/PNG/PDF)")
+    p.add_argument("out")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-seqid", default=None)
+    p.add_argument("-width", type=int, default=800)
+    p.add_argument("-format", default="auto",
+                   choices=["auto", "svg", "png", "pdf"])
+    p.add_argument("-style", default=None,
+                   help="annotation style file (reference .style "
+                        "table format)")
+    p.add_argument("-showrecmaps", action="store_true",
+                   help="show recmaps after image creation")
+    p.set_defaults(func=cmd_sketch)
+
+
+def cmd_sketch_page(args):
+    """gt sketch_page (ref: src/tools/gt_sketch_page.c): multi-page
+    PDF over the whole annotated range."""
+    from .anno.gff3 import parse_gff3
+    from .anno.sketch import sketch_pages
+    nodes = []
+    for pth in args.files:
+        nodes.extend(parse_gff3(open(pth).read()))
+    style = None
+    if args.style:
+        from .anno.style import load_style
+        style = load_style(args.style)
+    pdf = sketch_pages(nodes, seqid=args.seqid, width=args.width,
+                       page_span=args.linewidth, style=style)
+    with open(args.out, "wb") as f:
+        f.write(pdf)
+    return 0
+
+
+def _add_sketch_page(sub):
+    p = sub.add_parser("sketch_page",
+                       help="draw a multi-page PDF of annotations")
+    p.add_argument("out")
+    p.add_argument("files", nargs="+")
+    p.add_argument("-seqid", default=None)
+    p.add_argument("-width", type=int, default=800)
+    p.add_argument("-linewidth", type=int, default=50000,
+                   help="base pairs per page")
+    p.add_argument("-style", default=None)
+    p.set_defaults(func=cmd_sketch_page)
+
+
+def cmd_dot(args):
+    """ref: src/tools/gt_dot.c — print feature graphs in dot format."""
+    from .anno.gff3 import parse_gff3
+    print("digraph {")
+    print("  ratio=compress;")
+    print("  node [shape=box];")
+    n = 0
+    for pth in args.files:
+        for node in parse_gff3(open(pth).read()):
+            if not hasattr(node, "children"):
+                continue
+            stack = [(node, None)]
+            while stack:
+                cur, parent = stack.pop()
+                nid = f"n{n}"
+                n += 1
+                label = f"{cur.type} {cur.range.start}-{cur.range.end}" \
+                    if hasattr(cur, "type") else str(cur)
+                print(f'  {nid} [label="{label}"];')
+                if parent is not None:
+                    print(f"  {parent} -> {nid};")
+                for ch in getattr(cur, "children", []) or []:
+                    stack.append((ch, nid))
+    print("}")
+    return 0
+
+
+def _add_dot(sub):
+    p = sub.add_parser("dot", help="print feature graphs in dot format")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_dot)
+
+
+def cmd_chain2dim(args):
+    from .match.chain2dim import Fragment, chain_fragments
+    frags = []
+    for line in open(args.m):
+        parts = line.split()
+        if len(parts) >= 4 and not line.startswith("#"):
+            s1, e1, s2, e2 = (int(x) for x in parts[:4])
+            w = int(parts[4]) if len(parts) > 4 else (e1 - s1 + 1)
+            frags.append(Fragment(s1, e1, s2, e2, w))
+    score, chain = chain_fragments(frags, local=args.local,
+                                   gapcost_factor=args.wf)
+    print(f"# chain score {score}")
+    for i in chain:
+        f = frags[i]
+        print(f"{f.start1} {f.end1} {f.start2} {f.end2}")
+    return 0
+
+
+def _add_chain2dim(sub):
+    p = sub.add_parser("chain2dim", help="chain colinear match fragments")
+    p.add_argument("-m", required=True, help="match file")
+    p.add_argument("-local", action="store_true")
+    p.add_argument("-wf", type=float, default=0.0, help="gap cost factor")
+    p.set_defaults(func=cmd_chain2dim)
+
+
+def cmd_congruence(args):
+    """gt congruence spacedseed (ref: src/tools/gt_congruence.c over
+    src/match/cgr_spacedseed.c): match the fixed spaced seed."""
+    from .core.encseq import Encseq
+    from .index.esa import load_esa
+    from .match.congruence import match_spacedseed
+    if args.subtool != "spacedseed":
+        print(f"gt congruence: unknown subtool {args.subtool}",
+              file=sys.stderr)
+        return 1
+    idx = args.esa or args.pck
+    enc = Encseq.load(idx)
+    rank = None
+    try:
+        esa = load_esa(idx, encseq=enc, need_lcp=False)
+        rank = np.zeros(esa.suftab.size, np.int64)
+        rank[esa.suftab.astype(np.int64)] = np.arange(esa.suftab.size)
+    except FileNotFoundError:
+        pass
+    q = Encseq.from_files(args.q)
+    for dblen, dbstart in match_spacedseed(enc, q, rank=rank):
+        print(f"{dblen}\t{dbstart}")
+    return 0
+
+
+def _add_congruence(sub):
+    p = sub.add_parser("congruence", help="match spaced seeds")
+    p.add_argument("subtool", choices=["spacedseed"])
+    p.add_argument("-esa", default=None, help="enhanced suffix array")
+    p.add_argument("-pck", default=None, help="packed index")
+    p.add_argument("-q", nargs="+", required=True, help="query files")
+    p.add_argument("-cmp", action="store_true")   # accepted, no-op
+    p.add_argument("-v", action="store_true")
+    p.set_defaults(func=cmd_congruence)
+
+
+def cmd_matchtool(args):
+    """gt matchtool (ref: src/tools/gt_matchtool.c)."""
+    from .core.seqio import _read_bytes
+    from .match.matchtool import parse_blast_matches, parse_open_matches
+    text = _read_bytes(args.matchfile).decode("latin-1")
+    try:
+        if args.type == "OPENMATCH":
+            sys.stdout.write(parse_open_matches(text))
+        elif args.type == "BLASTOUT":
+            sys.stdout.write(parse_blast_matches(text))
+        else:
+            print(f"gt matchtool: error: type {args.type} requires an "
+                  f"external matcher (not supported)", file=sys.stderr)
+            return 1
+    except ValueError as e:
+        print(f"gt matchtool: error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _add_matchtool(sub):
+    p = sub.add_parser("matchtool", help="parse match files "
+                       "(OPENMATCH/BLASTOUT)")
+    p.add_argument("-matchfile", required=True)
+    p.add_argument("-type", default="OPENMATCH",
+                   choices=["OPENMATCH", "BLASTOUT", "BLASTALLP",
+                            "BLASTALLN", "BLASTP", "BLASTN", "SW"])
+    p.set_defaults(func=cmd_matchtool)
+
+
+def cmd_linspace_align(args):
+    from .core.alphabet import dna_alphabet
+    from .match.alignment import (global_alignment,
+                                  global_alignment_affine,
+                                  global_alignment_linear_space,
+                                  local_alignment)
+    a = dna_alphabet()
+    u = a.encode(args.ss[0].encode())
+    v = a.encode(args.ss[1].encode())
+    if args.local:
+        r = local_alignment(u, v)
+    elif args.affine:
+        r = global_alignment_affine(u, v)
+    else:
+        r = global_alignment_linear_space(u, v)
+    print(f"# score {r.score}")
+    print(r.cigar(distinguish=True, u=u, v=v))
+    return 0
+
+
+def _add_linspace_align(sub):
+    p = sub.add_parser("linspace_align", help="pairwise alignment")
+    p.add_argument("-ss", nargs=2, required=True, metavar=("SEQ1", "SEQ2"))
+    p.add_argument("-local", action="store_true")
+    p.add_argument("-affine", action="store_true")
+    p.set_defaults(func=cmd_linspace_align)
+
+
+def cmd_wtree(args):
+    from .core.encseq import Encseq
+    from .utils.structures import WaveletTree
+    enc = Encseq.load(args.indexname)
+    wt = WaveletTree(enc.codes.astype(np.int64), 256)
+    if args.rank is not None:
+        sym, pos = args.rank
+        print(wt.rank(int(sym), int(pos)))
+    elif args.select is not None:
+        sym, k = args.select
+        print(wt.select(int(sym), int(k)))
+    else:
+        print(f"sequence length: {enc.total_length}")
+    return 0
+
+
+def _add_wtree(sub):
+    p = sub.add_parser("wtree", help="wavelet-tree rank/select over encseq")
+    p.add_argument("indexname")
+    p.add_argument("-rank", nargs=2, default=None, metavar=("SYM", "POS"))
+    p.add_argument("-select", nargs=2, default=None, metavar=("SYM", "K"))
+    p.set_defaults(func=cmd_wtree)
+
+
+def cmd_clean(args):
+    """ref: src/tools/gt_clean.c — remove gt-generated index files in
+    the current directory."""
+    import glob
+    import os
+    for suf in (".esq", ".ssp", ".des", ".sds", ".ois", ".md5"):
+        for f in glob.glob("*" + suf):
+            os.remove(f)
+    return 0
+
+
+def _add_clean(sub):
+    p = sub.add_parser("clean", help="remove gt-created files in cwd")
+    p.set_defaults(func=cmd_clean)
+
+
+def cmd_mmapandread(args):
+    """ref: src/tools/gt_mmapandread.c."""
+    import mmap
+    import os
+    for fn in args.files:
+        size = os.path.getsize(fn)
+        if size == 0:
+            print(f'file "{fn}" is empty')
+            continue
+        with open(fn, "rb") as f:
+            mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
+            byte = 0
+            for off in range(0, size, 1 << 20):
+                byte ^= mm[off]
+            mm.close()
+    return 0
+
+
+def _add_mmapandread(sub):
+    p = sub.add_parser("mmapandread",
+                       help="map files into memory and read them")
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_mmapandread)
+
+
+def cmd_template(args):
+    """ref: src/tools/gt_template.c (the developer demo tool)."""
+    if args.bool:
+        print("argc=?, parsed_args=?")
+    print(f"argv[0]={args.file or 'template'}")
+    return 0
+
+
+def _add_template(sub):
+    p = sub.add_parser("template", help="development template tool")
+    p.add_argument("file", nargs="?", default=None)
+    p.add_argument("-bool", action="store_true")
+    p.set_defaults(func=cmd_template)
+
+
+def cmd_dev_sfxmap(args):
+    """gt dev sfxmap (ref: src/tools/gt_sfxmap.c): verify an on-disk
+    index — suftab order, lcp recompute, bcktab consistency, encseq
+    readback; the reference's own cross-checker (checksfx in
+    testsuite/gt_suffixerator_include.rb:17 runs it on every index)."""
+    from .core.encseq import Encseq
+    from .index.esa import load_esa
+    from .index.suffix import check_suftab_order, kasai_lcp
+    if args.esa and not args.indexname:
+        args.indexname = args.esa          # gt-compatible -esa alias
+    enc = Encseq.load(args.indexname)
+    need_itv = args.enumlcpitvs or args.enumlcpitvtree or \
+        args.enumlcpitvtreeBU or args.spmitv
+    esa = load_esa(args.indexname, encseq=enc,
+                   need_lcp=args.lcp or need_itv)
+    if need_itv:
+        from .match.esa_bottomup import (LcpIntervalPrinter,
+                                         LcpTreePrinter, SpmitvsVisitor,
+                                         esa_bottomup)
+        sa = esa.suftab.astype(np.int64)
+        lcp = np.asarray(esa.lcptab, np.int64)
+        nonspecials = enc.total_length - enc.special_ranges.total
+        if args.enumlcpitvs:
+            esa_bottomup(sa, lcp, nonspecials,
+                         LcpIntervalPrinter(sys.stdout))
+            # the reference's interval enumerator closes with the root
+            # interval over the whole table (esa-lcpintervals.c)
+            print(f"N 0 0 {enc.total_length}")
+        if args.enumlcpitvtree or args.enumlcpitvtreeBU:
+            esa_bottomup(sa, lcp, nonspecials,
+                         LcpTreePrinter(sys.stdout))
+        if args.spmitv:
+            v = SpmitvsVisitor(enc)
+            esa_bottomup(sa, lcp, nonspecials, v)
+            v.print_results(nonspecials, sys.stdout)
+        return 0
+    keys = enc.suffix_keys()
+    bad = 0
+    if args.suf:
+        sa = esa.suftab.astype(np.int64)
+        if sorted(sa.tolist()) != list(range(keys.size)):
+            print("sfxmap: suftab is not a permutation",
+                  file=sys.stderr)
+            bad = 1
+        elif not check_suftab_order(keys, sa):
+            print("sfxmap: suftab order violated", file=sys.stderr)
+            bad = 1
+        else:
+            print(f"# suftab order verified ({sa.size} suffixes)",
+                  file=sys.stderr)
+    if args.lcp and esa.lcptab is not None and not bad:
+        from .core.native import kasai_lcp_native
+        ref = kasai_lcp_native(keys, esa.suftab)
+        if ref is None:
+            ref = kasai_lcp(keys, esa.suftab.astype(np.int64))
+        if not np.array_equal(np.asarray(ref, np.int64),
+                              np.asarray(esa.lcptab, np.int64)):
+            print("sfxmap: lcp table mismatch vs Kasai recompute",
+                  file=sys.stderr)
+            bad = 1
+        else:
+            print("# lcp table verified (Kasai recompute)",
+                  file=sys.stderr)
+    if args.tis:
+        rt = Encseq.load(args.indexname)
+        if not np.array_equal(rt.codes, enc.codes):
+            print("sfxmap: encseq readback mismatch", file=sys.stderr)
+            bad = 1
+        else:
+            print("# encseq readback verified", file=sys.stderr)
+    return bad
+
+
+def cmd_dev_show_seedext(args):
+    from .match.show_seedext import show_seedext
+    return show_seedext(args.f, args.outfmt or [],
+                        sortmatches=args.sortmatches)
+
+
+def cmd_dev_sortbench(args):
+    """gt dev sortbench (ref: src/tools/gt_sortbench.c): time sort
+    implementations on random data; the port benches torch.sort on
+    -device (the copy from the host, the sort and the copy back, as the
+    reference times its device sort) against numpy. -verify holds the
+    last run's output against numpy's sort."""
+    import time as _time
+
+    import torch
+
+    from .device import resolve_device
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(42)
+    vals = rng.integers(0, args.maxvalue, args.n, dtype=np.int64)
+    out = vals
+    for _ in range(args.runs):
+        t0 = _time.perf_counter()
+        if args.impl == "numpy":
+            out = np.sort(vals)
+        else:
+            out = torch.sort(torch.from_numpy(vals).to(dev)).values \
+                .cpu().numpy()
+        el = _time.perf_counter() - t0
+        print(f"# TIME {args.impl} sort of {args.n} values "
+              f"{int(el)}.{int(el * 100) % 100:02d}")
+    if args.verify:
+        assert np.array_equal(out, np.sort(vals)), "output not sorted"
+        print("# verified")
+    return 0
+
+
+def cmd_dev_paircmp(args):
+    """gt dev paircmp (ref: src/tools/gt_paircmp.c): apply the unit
+    edit-distance checkfunction to string pairs — all pairs over a
+    character list up to a length (-a), or two given strings (-ss);
+    verifies the production aligner against the O(n*m) DP oracle."""
+    from itertools import product
+
+    from .match.alignment import edit_distance
+
+    def dp_edist(u, v):
+        prev = list(range(len(v) + 1))
+        for i in range(1, len(u) + 1):
+            cur = [i] + [0] * len(v)
+            for j in range(1, len(v) + 1):
+                cur[j] = min(prev[j] + 1, cur[j - 1] + 1,
+                             prev[j - 1] + (u[i - 1] != v[j - 1]))
+            prev = cur
+        return prev[len(v)]
+
+    charset = sorted(set("".join(args.ss) if args.ss else args.a[0]))
+    if len(charset) > 4:
+        raise SystemExit("paircmp: at most 4 distinct characters "
+                         "(the production aligner's code domain)")
+    cmap = {c: i for i, c in enumerate(charset)}
+
+    def enc(w):
+        return np.asarray([cmap[c] for c in w], np.uint8)
+
+    pairs = 0
+    if args.ss:
+        u, v = args.ss
+        d = edit_distance(enc(u), enc(v))
+        if args.e:
+            print(f"edist({u},{v})={d}")
+        assert d == dp_edist(u, v)
+        pairs = 1
+    else:
+        chars, maxlen = args.a[0], int(args.a[1])
+        words = [""]
+        all_words = [""]
+        for _ in range(maxlen):
+            words = [w + c for w in words for c in chars]
+            all_words += words
+        for u, v in product(all_words, repeat=2):
+            d = edit_distance(enc(u), enc(v))
+            assert d == dp_edist(u, v), f"mismatch at ({u}, {v})"
+            pairs += 1
+    print(f"# number of compared pairs: {pairs}")
+    return 0
+
+
+def cmd_dev_patternmatch(args):
+    """gt dev patternmatch (ref: src/tools/gt_patternmatch.c): sample
+    random substrings of an indexed sequence set and check that the
+    index search finds each at its sampled position."""
+    from .core.encseq import Encseq
+    from .index.esa import load_esa
+    from .match.querysearch import query_substring_matches
+
+    enc = Encseq.load(args.ii)
+    esa = load_esa(args.ii, encseq=enc)
+    rng = np.random.default_rng(7)
+    n = enc.total_length
+    found = 0
+    for _ in range(args.samples):
+        pl = int(rng.integers(args.minpl, args.maxpl + 1))
+        p0 = int(rng.integers(0, max(n - pl, 1)))
+        pat = enc.codes[p0:p0 + pl]
+        if (pat >= 4).any():
+            continue
+        q = Encseq.from_string(enc.alphabet.decode(pat))
+        hits = [dbpos for dbpos, _, length in
+                query_substring_matches(esa, q, pl) if length >= pl]
+        assert p0 in hits, f"pattern at {p0} (len {pl}) not found"
+        found += 1
+    print(f"# {found} patterns checked")
+    return 0
+
+
+def cmd_dev_trieins(args):
+    """gt dev trieins (ref: src/tools/gt_trieins.c over
+    src/match/trieins.c): insert every suffix of an index into the
+    trie order and verify it equals the suffix array (the reference's
+    checktrie traversal)."""
+    from .core.encseq import Encseq
+    from .index.esa import load_esa
+    from .index.suffix import check_suftab_order
+
+    enc = Encseq.load(args.indexname)
+    esa = load_esa(args.indexname, encseq=enc, need_lcp=False)
+    keys = enc.suffix_keys()
+    n1 = keys.size
+    sa = esa.suftab.astype(np.int64)
+    assert sorted(sa.tolist()) == list(range(n1))
+    assert check_suftab_order(keys, sa), "trie order violated"
+    print(f"# {n1} suffixes inserted and verified")
+    return 0
+
+
+def cmd_dev_kmer_database(args):
+    """gt dev kmer_database (ref: src/tools/gt_kmer_database.c over
+    src/extended/kmer_database.c): build the merged k-mer database of
+    a sequence file, optionally verify against brute-force counts."""
+    from .core.encseq import Encseq
+    from .match.kmer_database import KmerDatabase
+
+    enc = Encseq.from_files(args.db)
+    db = KmerDatabase.from_encseq(enc, args.kmersize,
+                                  cutoff=args.cutoff)
+    assert db.check_consistency()
+    if args.verify:
+        from .match.tallymer import mkindex_bruteforce
+        ref = mkindex_bruteforce(enc, args.kmersize)
+        counts = np.diff(db.offsets)
+        assert db.num_keys == ref.num_mers
+        assert (db.codes == ref.mer_codes).all()
+        if args.cutoff is None:
+            assert (counts == ref.counts).all()
+        print("# verified against brute-force recount")
+    print(f"# {db.num_keys} distinct {args.kmersize}-mers, "
+          f"{db.num_occurrences} occurrences")
+    return 0
+
+
+def cmd_dev_skproto(args):
+    """gt dev skproto (ref: src/tools/gt_skproto.c): print a new-tool
+    skeleton (a Python subcommand module here, matching this CLI's
+    conventions instead of the reference's C boilerplate: the port's
+    skeleton takes -device, which build_parser adds, where the
+    reference's takes --cpu)."""
+    name = args.name or "newtool"
+    q3 = '"""'
+    lines = [
+        f"def cmd_{name}(args):",
+        f"    {q3}gt {name} (ref: src/tools/gt_{name}.c).{q3}",
+        "    from .device import resolve_device",
+        "    resolve_device(args.device)",
+        "    return 0",
+        "",
+        "",
+        f"def _add_{name}(sub):",
+        f'    p = sub.add_parser("{name}", help="FIXME")',
+        "    return p",
+    ]
+    print("\n".join(lines))
+    return 0
+
+
+def _add_dev(sub):
+    p = sub.add_parser("dev", help="development tools")
+    dsub = p.add_subparsers(dest="devtool", required=True)
+
+    s = dsub.add_parser("sfxmap", help="verify an on-disk ESA index")
+    s.add_argument("indexname", nargs="?", default=None)
+    s.add_argument("-suf", action="store_true")
+    s.add_argument("-lcp", action="store_true")
+    s.add_argument("-tis", action="store_true")
+    s.add_argument("-esa", default=None)       # accepted alias
+    s.add_argument("-enumlcpitvs", action="store_true",
+                   help="enumerate the lcp-intervals")
+    s.add_argument("-enumlcpitvtree", action="store_true",
+                   help="enumerate the lcp-interval tree")
+    s.add_argument("-enumlcpitvtreeBU", action="store_true",
+                   help="enumerate the lcp-interval tree (bottom-up)")
+    s.add_argument("-spmitv", action="store_true",
+                   help="distribution of intervals with whole leaves")
+    s.set_defaults(func=cmd_dev_sfxmap)
+
+    s = dsub.add_parser("show_seedext",
+                        help="re-display seed_extend match files")
+    s.add_argument("-f", required=True, help="match file")
+    s.add_argument("-outfmt", nargs="+", default=None)
+    s.add_argument("-sortmatches", action="store_true")
+    s.add_argument("-relax_polish", action="store_true")  # accepted
+    s.set_defaults(func=cmd_dev_show_seedext)
+
+    s = dsub.add_parser("sortbench", help="benchmark sorting")
+    s.add_argument("-impl", default="device",
+                   choices=["device", "numpy"])
+    s.add_argument("-size", dest="n", type=int, default=1 << 20)
+    s.add_argument("-maxvalue", type=int, default=1 << 30)
+    s.add_argument("-runs", type=int, default=1)
+    s.add_argument("-verify", action="store_true")
+    _add_device(s, cmd_dev_sortbench)
+
+    s = dsub.add_parser("paircmp", help="check pairwise aligners")
+    s.add_argument("-ss", nargs=2, default=None,
+                   help="use two strings")
+    s.add_argument("-a", nargs=2, default=None,
+                   help="use character list and length")
+    s.add_argument("-e", action="store_true",
+                   help="output unit edit distance")
+    s.set_defaults(func=cmd_dev_paircmp)
+
+    s = dsub.add_parser("patternmatch",
+                        help="check index pattern search")
+    s.add_argument("-ii", required=True)
+    s.add_argument("-minpl", type=int, default=10)
+    s.add_argument("-maxpl", type=int, default=30)
+    s.add_argument("-samples", type=int, default=100)
+    s.set_defaults(func=cmd_dev_patternmatch)
+
+    s = dsub.add_parser("trieins", help="suffix trie insertion check")
+    s.add_argument("indexname")
+    s.set_defaults(func=cmd_dev_trieins)
+
+    s = dsub.add_parser("kmer_database", help="merged k-mer database")
+    s.add_argument("-db", nargs="+", required=True)
+    s.add_argument("-kmersize", type=int, default=8)
+    s.add_argument("-cutoff", type=int, default=None)
+    s.add_argument("-verify", action="store_true")
+    s.set_defaults(func=cmd_dev_kmer_database)
+
+    s = dsub.add_parser("skproto", help="print a tool skeleton")
+    s.add_argument("name", nargs="?", default=None)
+    s.set_defaults(func=cmd_dev_skproto)
+
+
 def _add_device(p, func) -> None:
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                    help="where the device work runs (default cuda; "
@@ -2153,14 +3571,15 @@ def build_parser() -> argparse.ArgumentParser:
                       (_add_prebwt, cmd_prebwt),
                       (_add_tagerator, cmd_tagerator),
                       (_add_mergeesa, cmd_mergeesa),
-                      (_add_sain, cmd_sain)):
+                      (_add_sain, cmd_sain),
+                      (_add_seqorder, cmd_seqorder)):
         _add_device(add(sub), func)
     for add, func in ((_add_tallymer, cmd_tallymer),
                       (_add_readjoiner, cmd_readjoiner),
                       (_add_packedindex, cmd_packedindex)):
         for p in add(sub):          # each subcommand's parser
             _add_device(p, func)
-    # the annotation tools run on the host and take no -device
+    # the host tools take no -device (dev sortbench adds its own)
     for add in (_add_gff3, _add_stat, _add_convert_anno, _add_select,
                 _add_feat_streams, _add_scriptfilter, _add_speck, _add_csa,
                 _add_eval, _add_cds, _add_splicesiteinfo, _add_orffinder,
@@ -2168,13 +3587,97 @@ def build_parser() -> argparse.ArgumentParser:
                 _add_gff3validator, _add_inlineseq_split,
                 _add_inlineseq_add, _add_merge, _add_uniq, _add_interfeat,
                 _add_extractfeat, _add_mkfeatureindex, _add_featureindex,
-                _add_snpper):
+                _add_snpper, _add_encseq, _add_seqstat, _add_condenseq,
+                _add_seqtools, _add_magicmatch, _add_seqtransform,
+                _add_fastq_sample, _add_convertseq, _add_seq,
+                _add_splitfasta, _add_compreads, _add_hop, _add_sambam,
+                _add_sketch, _add_sketch_page, _add_dot, _add_chain2dim,
+                _add_congruence, _add_matchtool, _add_linspace_align,
+                _add_wtree, _add_clean, _add_mmapandread, _add_template,
+                _add_dev):
         add(sub)
     return parser
 
 
+def _tool_constraints():
+    """Declarative option implications/exclusions per tool, mirroring
+    the reference's gt_option_imply/_exclude declarations (ref:
+    src/tools/gt_repfind.c:458-477, gt_seed_extend.c:272-380,
+    src/match/sfx-run.c; error texts byte-matched to core/option.c)."""
+    from .utils.options import Constraints
+    return {
+        "suffixerator": Constraints()
+            .exclude("parts", "memlimit"),
+        "repfind": Constraints()
+            .exclude("extendgreedy", "extendxdrop")
+            .imply_either("minidentity", "extendxdrop", "extendgreedy")
+            .imply("maxalilendiff", "extendgreedy")
+            .imply("percmathistory", "extendgreedy"),
+        "seed_extend": Constraints()
+            .exclude("extendgreedy", "extendxdrop")
+            .exclude("percmathistory", "extendxdrop")
+            .exclude("maxalilendiff", "extendxdrop")
+            .exclude("history", "extendxdrop")
+            .imply("pick", "parts"),
+    }
+
+
+def _proc_env_options():
+    """Parse $GT_ENV_OPTIONS (ref: src/core/init.c:52-95
+    proc_env_options): `-spacepeak` turns on the space-peak ledger
+    printed at exit, `-showtime` enables run-time statistics globally.
+    Bad options report on stderr without aborting the tool, exactly
+    like the reference."""
+    env = os.environ.get("GT_ENV_OPTIONS")
+    if not env:
+        return
+    for tok in env.split():
+        if tok == "-spacepeak":
+            bookkeeping = os.environ.get("GT_MEM_BOOKKEEPING")
+            if bookkeeping != "on":
+                print("warning: GT_ENV_OPTIONS=-spacepeak used without "
+                      "GT_MEM_BOOKKEEPING=on", file=sys.stderr)
+            from .utils import spacepeak
+            spacepeak.show_at_exit()
+        elif tok == "-showtime":
+            os.environ["GT_SHOWTIME"] = "1"
+        elif tok:
+            print(f'error parsing $GT_ENV_OPTIONS: unknown option: '
+                  f'"{tok}"', file=sys.stderr)
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    tools = next(a.choices for a in parser._actions
+                 if isinstance(a, argparse._SubParsersAction))
+    _proc_env_options()
+    raw = list(argv if argv is not None else sys.argv[1:])
+    # man page sources for every tool (ref: src/gtr.c:227 -createman,
+    # gtr.c:325 create_manpages)
+    if len(raw) >= 2 and raw[0] == "-createman":
+        from .utils.manpage import create_manpages
+        n = create_manpages(parser, raw[1])
+        print(f"# wrote {n} man page sources to {raw[1]}",
+              file=sys.stderr)
+        return 0
+    # driver script fallback (ref: src/gtr.c:462-507): a first argument
+    # that is not a tool runs as a script with the `gt` namespace; `-i`
+    # opens the interactive shell
+    if raw and raw[0] == "-i":
+        from .gtscript import interactive
+        return interactive()
+    if raw and raw[0] not in tools and not raw[0].startswith("-"):
+        if os.path.isfile(raw[0]):
+            from .gtscript import run_script
+            return run_script(raw[0], raw[1:])
+        print(f"genometools_torch: error: neither tool nor script "
+              f"'{raw[0]}' found; option -help lists possible tools",
+              file=sys.stderr)
+        return 1
+    args = parser.parse_args(raw)
+    cons = _tool_constraints().get(args.tool)
+    if cons is not None:
+        cons.check(raw, parser.error)
     try:
         return args.func(args)
     except BrokenPipeError:

@@ -635,8 +635,14 @@ def test_type_checker_and_anno_db(tmp_path):
         out.append((db.seqids(), _render(g, db.features_for_range(
             "chr2", 5000, 30000), retainids=True)))
     assert out[1] == out[0]
-    with pytest.raises(NotImplementedError, match="hop/sambam slice"):
-        ta.parse_bam(str(tmp_path / "x.bam"))
+    # the BAM branch: the same records as the reference's
+    from test_torch_hop import make_mapping, write_bam
+    refs, recs, _ = make_mapping(3)
+    write_bam(tmp_path / "x.bam", refs, recs)
+    rows = [[(a.qname, a.flag, a.rname, a.pos, a.mapq, a.cigar, a.seq)
+             for a in mod.parse_bam(str(tmp_path / "x.bam"))]
+            for mod in (ra, ta)]
+    assert rows[1] == rows[0] and len(rows[1]) == len(recs)
 
 
 def test_feature_index_and_extract():

@@ -120,16 +120,21 @@ def test_pick_cells_match_reference(query):
     assert cells == whole and whole
 
 
-def test_pick_errors(tmp_path):
+def test_pick_errors(tmp_path, capsys):
     from genometools_torch.cli import main
     enc = Encseq.from_string("|".join(_planted_text(3)))
     with pytest.raises(ValueError, match="must not exceed 3"):
         tse.seed_extend(enc, None, tse.SeedExtendParams(
             parts=3, pick=(1, 4)), device="cpu")
     enc.save(str(tmp_path / "idx"))
-    with pytest.raises(SystemExit, match='"-pick" requires option "-parts"'):
+    # the option table refuses -pick without -parts, as the reference's
+    # main does: exit 2 with gt's message
+    with pytest.raises(SystemExit) as e:
         main(["seed_extend", "-ii", str(tmp_path / "idx"), "-pick", "1,1",
               "-device", "cpu"])
+    assert e.value.code == 2
+    assert capsys.readouterr().err.endswith(
+        'error: option "-pick" requires option "-parts"\n')
 
 
 def test_cli_refuses_dist_and_runs_parts(tmp_path):

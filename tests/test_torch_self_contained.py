@@ -4,10 +4,12 @@ suffixerator (in memory, with -parts and with -dist), suffixerator_e2e,
 seed_extend (with -parts, -dist, -maxmat and -estim), repfind, tallymer mkindex|search,
 readjoiner prefilter|overlap|assembly, genomediff, ltrharvest, tirvish,
 ltrclustering, packedindex mkindex, prebwt, tagerator (-esa and -pck),
-mergeesa, sain, ltrdigest (with -outfileprefix) and the annotation tools
-(gff3 -sort, gff3validator, stat, extractfeat) run in a process where
-both are blocked, printing what the reference's CLI prints for the same
-arguments and writing the same files."""
+mergeesa, sain, ltrdigest (with -outfileprefix), the annotation tools
+(gff3 -sort, gff3validator, stat, extractfeat), the sequence tools
+(encseq decode, shredder, seqstat, seqorder -sort), dev kmer_database and
+graft.entry run in a process where both are blocked, printing what the
+reference's CLI prints for the same arguments and writing the same
+files."""
 
 import ast
 import contextlib
@@ -99,10 +101,17 @@ COMMANDS = [
      "-outfileprefix", "ld", "lhs.gff3"],
     ["extractfeat", "lhs.gff3", "-type", "LTR_retrotransposon", "-seqfile",
      "ltr.fa"],
+    ["encseq", "decode", "idx"],
+    ["shredder", "-minlength", "100", "-maxlength", "200", "in.fa"],
+    ["seqstat", "in.fa", "in2.fa"],
+    ["seqorder", "-sort", "idx"],
+    ["dev", "kmer_database", "-db", "in.fa", "-kmersize", "6"],
 ]
-# the annotation tools take no -device in the port and no --cpu in the
-# reference; ltrdigest takes -device in the port only
-HOST_TOOLS = ("gff3", "gff3validator", "stat", "extractfeat")
+# the host tools take no -device in the port (and the annotation and
+# sequence tools no --cpu in the reference); ltrdigest and seqorder take
+# -device in the port only
+HOST_TOOLS = ("gff3", "gff3validator", "stat", "extractfeat", "encseq",
+              "shredder", "seqstat", "dev")
 # files the commands write: the reference writes its own under _ref names
 WRITTEN = {"tyr": ("mer", "mct", "tyr.json"),
            "rj": ("reads.npz", "spm", "contigs.fas"),
@@ -163,6 +172,9 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
         "['-device', 'cpu']))\n"
         "    print('#--', flush=True)\n"
         "suffixerator_e2e(['in.fa'], 'e2e', device='cpu')\n"
+        "from genometools_torch import graft\n"
+        "fn, (keys,) = graft.entry('cpu')\n"
+        "assert fn(keys).shape == (1 << 16,)\n"
         f"assert all(sys.modules[m] is None for m in {BLOCKED!r})\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
@@ -183,10 +195,11 @@ def test_cli_runs_with_reference_and_jax_blocked(tmp_path):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf), \
                     contextlib.redirect_stderr(io.StringIO()):
-                # readjoiner's, ltrdigest's and the annotation tools'
-                # parsers take no --cpu
+                # readjoiner's, ltrdigest's, seqorder's and the host
+                # tools' parsers take no --cpu
                 ref_main([_ref_arg(a) for a in argv]
-                         + ([] if argv[0] in ("readjoiner", "ltrdigest")
+                         + ([] if argv[0] in ("readjoiner", "ltrdigest",
+                                              "seqorder")
                             + HOST_TOOLS else ["--cpu"]))
             assert text == buf.getvalue(), argv
             assert text or argv[0] in QUIET or "-indexname" in argv or \
