@@ -6,30 +6,34 @@ src/match/diagbandseed.c:5734 gt_diagbandseed_run, seed-extend.c:994
 gt_extend_sesp). The pipeline per strand: k-mer lists, seed pairs
 sorted by (aseq, bseq, bpos, apos), the per-segment diagonal-band
 coverage filter, then the sequential skip/extend/accept walk in
-reference order. The extensions run speculatively in waves on the
-device (``_WaveProvider``): every candidate seed the live skip state
-does not rule out is extended in one batch, and the exact sequential
-accept loop then consumes the results — a mispredicted skip only
-starts a new wave, so the output equals the sequential engine's.
+reference order. The walk runs in segment-parallel rounds over the
+selected seeds' flat arrays (``_walk_rounds``): each round extends, for
+every live segment at once, the next seeds its own sequential walk
+would reach, in one batch; the walk then consumes them in order, so the
+output equals the sequential engine's. A segment extends one seed in
+each of its first two rounds and twice as many in each round after,
+the speculative seeds held to twice the extensions the walk uses.
 
-The device path is the path: on a CUDA device the waves run K1, K2
-and K3, on the CPU their plain versions. Greedy flanks longer than
-K1's windows go through the windowed chunk loop and K2
+The device path is the path: on a CUDA device the rounds' batches run
+K1, K2 and K3, on the CPU their plain versions; parameters the batches
+do not take (xdrop with non-unit scores, greedy with a history outside
+[30, 64]) take the host extension in the same rounds. Greedy flanks
+longer than K1's windows go through the windowed chunk loop and K2
 (``skip_chunked=False``), where the reference's wave path sends them
 to the host engine (its match/seed_extend.py:617-625, for a cost
 measured on the TPU); the lines are the same either way. The
 reference's fused host C++ engine (``_native_segment_recs``) is
-reachable only as
-``seed_extend(..., engine="fused")``; it is the oracle the tests and
-chip_smoke.py compare against. The -parts/-pick grid runs the same
-pipeline per cell with either engine; -maxmat
+reachable only as ``seed_extend(..., engine="fused")``; it is the
+oracle the tests and chip_smoke.py compare against. The -parts/-pick
+grid runs the same pipeline per cell with either engine; -maxmat
 (``maximal_exact_matches``) is the reference's host code.
 
 Spans (``genometools_torch.trace``), per strand: seedext.seeds (k-mer
 lists and seed pairs), seedext.filter (the diagonal-band filter and the
-segments), seedext.order (the candidates' order, the strand pool's
-upload, the wave provider's index), seedext.walk (the skip/extend/accept
-walk), within it one seedext.wave for each batch of extensions.
+segments), seedext.order (the selected seeds' flat arrays and the
+strand pool's upload), seedext.walk (the rounds; rounds, extended: seeds
+sent to a batch, used: extensions the walk consumed), within it one
+seedext.wave for each batch of extensions (candidates, round).
 """
 
 from __future__ import annotations
@@ -53,9 +57,9 @@ from ..ops.kmer import kmer_codes_np, spaced_kmer_codes_np
 from ..ops.xdrop import XdropScores, optimal_xdrop_belowscore, xdrop_extend
 from ..ops.xdrop_batch import xdrop_extend_batch_pool
 
-# candidate seeds per extension wave: on the H100 the at1MB run takes
-# about as long at 2,048 as at 1,048,576 (host-bound); 131,072 needs 3
-# waves there and extends 0.3 % more seeds than 32,768 (see PERF.md)
+# the most seeds one batch of a round extends; a round with more live
+# candidates goes in several batches (the seedext cell's first round
+# holds 16,193, see PERF.md)
 WAVE = 131072
 
 
@@ -467,81 +471,206 @@ def _batch_extensions(cands, k, greedy_ctx, belowscore, pool, gp, device):
     return out
 
 
-class _WaveProvider:
-    """Extends candidate seeds lazily in bounded device waves.
+def _depth(taken: np.ndarray, spare: int) -> np.ndarray:
+    """Seeds each live segment extends in a round: one in each of its
+    first two rounds (most segments need one or two extensions), then
+    twice as many in each round after. The seeds past the first of each
+    segment are speculative; while they would pass `spare` (twice the
+    extensions the walk used so far, less those it made), each
+    segment's share is cut in proportion, so the walk never extends
+    more than twice the seeds it uses."""
+    extra = np.left_shift(1, np.clip(taken - 1, 0, 20)) - 1
+    total = int(extra.sum())
+    if total > spare:
+        extra = extra * max(spare, 0) // total
+    return 1 + extra
 
-    A wave starts at the first seed the accept loop needs and takes the
-    following seeds in processing order, leaving out those the live
-    per-segment state predicts to be skipped. A prediction can be wrong
-    (prev_b_end can shrink); such a seed is requested later and heads a
-    new wave, so the result stream equals sequential extension."""
 
-    def __init__(self, segments, order, states, k, greedy_ctx, use_apos,
-                 belowscore, strand_pool, pool_bases, device, wave):
-        self.WAVE = wave
-        self.segments = segments
-        self.order = order
-        self.states = states
-        self.k = k
-        self.ctx = greedy_ctx
-        self.use_apos = use_apos
-        self.belowscore = belowscore
-        self.pool, _, self.gp = strand_pool
-        self.pool_bases = pool_bases
-        self.device = device
-        self.cache: dict = {}
-        self.pos_of = {key: idx for idx, key in enumerate(order)}
-        self.cursor = 0     # furthest scanned order position
+def _ranges(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The concatenated index ranges [lo, hi)."""
+    n = np.maximum(hi - lo, 0)
+    return np.repeat(lo - (np.cumsum(n) - n), n) + np.arange(int(n.sum()))
 
-    def get(self, si, i):
-        key = (si, i)
-        if key not in self.cache:
-            self._build_wave(self.pos_of[key])
-        return self.cache[key]
 
-    def _build_wave(self, start):
-        # restart: the head is a seed an earlier scan predicted skipped
-        with trace.span("seedext.wave", restart=start < self.cursor) as sp:
-            k = self.k
-            wave_keys = []
-            cands = []
-            idx = start
-            first = True
-            while idx < len(self.order) and len(cands) < self.WAVE:
-                key = self.order[idx]
-                if first:
-                    idx = max(idx, self.cursor)   # resume, don't rescan
-                idx += 1
-                if key in self.cache:
-                    first = False
-                    continue
-                si, i = key
-                _, _, useq, vseq, same_seq, apos, bpos, _ = self.segments[si]
-                bp, ap = int(bpos[i]), int(apos[i])
-                db, qs = ap + 1 - k, bp + 1 - k
-                if same_seq and db + k - 1 >= qs:
-                    self.cache[key] = None        # overlapping instances
-                    first = False
-                    continue
-                if not first:
-                    st = self.states[si]
-                    if self.use_apos == 0 and st[0] and st[1] >= bp:
-                        continue                  # predicted skip
-                    if self.use_apos > 0 and _seed_in_rectangles(
-                            st[2], ap, bp, k):
-                        continue                  # rectangles only grow
-                first = False
-                wave_keys.append(key)
-                ga, gb = self.pool_bases[si]
-                cands.append((len(useq), len(vseq), same_seq, db, qs, ga, gb))
-            self.cursor = max(self.cursor, idx)
-            if cands:
-                exts = _batch_extensions(np.asarray(cands, np.int64),
-                                         np.full(len(cands), k, np.int64),
-                                         self.ctx, self.belowscore, self.pool,
-                                         self.gp, self.device)
-                self.cache.update(zip(wave_keys, map(tuple, exts.tolist())))
-            sp.set(candidates=len(cands))
+def _accept(ext, k, db, qs, vlen, same, params, direction):
+    """The sequential walk's verdict on each extended seed (ref:
+    gt_extend_sesp, querymatch.c:722 check_final_generic), row by row:
+    the combine modes BOTH / ONLY_LEFT / ONLY_RIGHT in order, the first
+    that passes the identity and length filters accepted. Returns
+    (kind, prev_b_end, rect, fields): kind 1 a match, 0 a failed seed, 2
+    a same-sequence match shown only in its canonical orientation (ref:
+    querymatch.c:357 gt_querymatch_ordered), which is no event; mode 0
+    sets prev_b_end and the rectangle (a_start, a_end, b_start, b_end);
+    fields are the accepted mode's a_start, dblen, b_start, querylen,
+    score, dist, mismatches and err."""
+    u_l, v_l, sd_l, u_r, v_r, sd_r, mm_l, mm_r = ext.T
+    zero = np.zeros_like(u_l)
+    n = ext.shape[0]
+    accepted = np.zeros(n, bool)
+    fields = np.zeros((7, n), np.int64)
+    err_out = np.zeros(n)
+    for mode in range(params.max_combine_mode + 1):
+        ul, vl, sl, ml = (u_l, v_l, sd_l, mm_l) if mode != 2 else (zero,) * 4
+        ur, vr, sr, mr = (u_r, v_r, sd_r, mm_r) if mode != 1 else (zero,) * 4
+        dblen = k + ul + ur
+        querylen = k + vl + vr
+        alignedlen = dblen + querylen
+        if params.extension == "greedy":
+            dist = sl + sr
+            score = alignedlen - 3 * dist
+        else:
+            score = k * params.scores.mat + sl + sr
+            dist = np.where(score >= 0, (alignedlen - score) // 3,
+                            -((alignedlen + score) // 3))
+        a_start = db - ul
+        b_start = qs - vl
+        if mode == 0:
+            prev_b_end = b_start + querylen - 1
+            rect = np.stack([a_start, a_start + dblen - 1, b_start,
+                             prev_b_end])
+        err = 200.0 * dist / alignedlen
+        ok = ~accepted & (err <= params.errorpercentage) & \
+            (alignedlen >= 2 * params.userdefinedleastlength)
+        fields[:, ok] = np.stack([a_start, dblen, b_start, querylen, score,
+                                  dist, ml + mr])[:, ok]
+        err_out[ok] = err[ok]
+        accepted |= ok
+    a_start, _, b_start, querylen = fields[:4]
+    b_fwd = b_start if direction == "F" else vlen - b_start - querylen
+    canon = a_start < (b_fwd + 1 if direction == "P" else b_fwd)
+    kind = np.where(accepted, np.where(same & ~canon, 2, 1), 0)
+    return kind, prev_b_end, rect, (fields, b_fwd, err_out)
+
+
+def _walk_rounds(sa, sb, sseg, g_end, same, vlen, k, params, direction,
+                 extend, wave):
+    """The sequential skip/extend/accept walk of every segment at once,
+    in rounds. A round extends, for each live segment, the next seeds
+    its walk would reach from its state at the round's start (_depth of
+    them), in batches of at most `wave` through extend(seed indices) ->
+    int64 (n, 8) rows; the walk then consumes them in order, and a seed
+    that a new state skips was extended for nothing, which changes no
+    result. Same-sequence overlapping instances the walk reaches are
+    failed seeds without an extension.
+
+    sa, sb, sseg: the selected seeds' apos, bpos and segment, in
+    processing order (segment, then bpos and apos); g_end: each
+    segment's end in them. Returns (seed, kind, fields, b_fwd, err) of
+    every seed the walk reports, in processing order, and (rounds,
+    extended, used)."""
+    nseg = g_end.size
+    use_apos = params.use_apos
+    ovl = same[sseg] & (sa + k - 1 >= sb)
+    has_ovl = bool(ovl.any())
+    ptr = np.searchsorted(sseg, np.arange(nseg))   # the next seed to reach
+    has_prev = np.zeros(nseg, bool)
+    prev_b_end = np.full(nseg, -1, np.int64)
+    taken = np.zeros(nseg, np.int64)
+    dead = np.zeros(sa.size, bool)        # in a previous match's rectangle
+    good = np.flatnonzero(~ovl)
+    # with a previous match and use_apos 0, a segment reaches its first
+    # seed whose bpos passes prev_b_end: one searchsorted on (segment, bpos)
+    span = int(max(sb.max(initial=0), vlen.max(initial=0))) + 2
+    skey = sseg * span + sb
+    # (seed, kind, fields, b_fwd, err) of the seeds the walk reports
+    found = [(np.zeros(0, np.int64), np.zeros(0, np.int64),
+              np.zeros((7, 0), np.int64), np.zeros(0, np.int64),
+              np.zeros(0))]
+
+    def reach(g, lo):
+        """The first seed each segment g reaches from lo on."""
+        if use_apos != 0:
+            return lo
+        hp = has_prev[g]
+        at = np.searchsorted(skey, g[hp] * span + prev_b_end[g[hp]], "right")
+        lo = lo.copy()
+        lo[hp] = np.maximum(lo[hp], at)
+        return lo
+
+    def reached_overlaps(lo, hi):
+        if has_ovl:
+            s = _ranges(lo, hi)
+            s = s[ovl[s] & ~dead[s]]
+            found.append((s, np.zeros(s.size, np.int64),
+                          np.zeros((7, s.size), np.int64),
+                          np.zeros(s.size, np.int64), np.zeros(s.size)))
+
+    rounds = extended = used = 0
+    live = np.flatnonzero(ptr < g_end)
+    while live.size:
+        if use_apos != 0:
+            good = np.flatnonzero(~ovl & ~dead)
+        lo = reach(live, ptr[live])
+        p = np.searchsorted(good, lo)
+        c = np.minimum(_depth(taken[live], 2 * used - extended),
+                       np.searchsorted(good, g_end[live]) - p)
+        go = c > 0
+        head = good[np.minimum(p, good.size - 1)] if good.size else lo
+        reached_overlaps(lo, np.where(go, head, g_end[live]))
+        ptr[live[~go]] = g_end[live[~go]]
+        live, p, c = live[go], p[go], c[go]
+        if not live.size:
+            break
+        rounds += 1
+        taken[live] += 1
+        base = np.cumsum(c) - c            # each segment's first row
+        batch = good[_ranges(p, p + c)]
+        exts = []
+        for i in range(0, batch.size, wave):
+            part = batch[i:i + wave]
+            with trace.span("seedext.wave", candidates=int(part.size),
+                            round=rounds):
+                exts.append(extend(part))
+        extended += batch.size
+        g = sseg[batch]
+        kind, pend, rect, info = _accept(
+            np.concatenate(exts), k, sa[batch] + 1 - k, sb[batch] + 1 - k,
+            vlen[g], same[g], params, direction)
+        add = np.full(batch.size, use_apos == 2) | \
+            ((use_apos == 1) & (kind > 0))
+        # consume the rows in each segment's walk order
+        used_rows = np.zeros(batch.size, bool)
+        act = np.arange(live.size)
+        cur = p.copy()
+        while act.size:
+            gs, row = live[act], base[act] + cur[act] - p[act]
+            used_rows[row] = True
+            has_prev[gs] = True
+            prev_b_end[gs] = pend[row]
+            s = batch[row]
+            if use_apos != 0 and add[row].any():
+                r = row[add[row]]
+                t = _ranges(batch[r] + 1, g_end[sseg[batch[r]]])
+                a0, a1, b0, b1 = np.repeat(rect[:, r], np.maximum(
+                    g_end[sseg[batch[r]]] - batch[r] - 1, 0), axis=1)
+                dead[t[(sa[t] + 1 - k <= a1) & (a0 <= sa[t]) &
+                       (sb[t] + 1 - k <= b1) & (b0 <= sb[t])]] = True
+            nxt = reach(gs, s + 1)
+            q = np.searchsorted(good, nxt)
+            lim = p[act] + c[act]
+            if use_apos != 0:
+                while True:
+                    m = np.flatnonzero(q < lim)
+                    m = m[dead[good[q[m]]]]
+                    if not m.size:
+                        break
+                    q[m] += 1
+            inb = q < lim
+            reached_overlaps(nxt[inb], good[q[inb]])
+            ptr[gs[~inb]] = nxt[~inb]
+            cur[act[inb]] = q[inb]
+            act = act[inb]
+        used += int(used_rows.sum())
+        fields, b_fwd, err = info
+        found.append((batch[used_rows], kind[used_rows],
+                      fields[:, used_rows], b_fwd[used_rows],
+                      err[used_rows]))
+        live = live[ptr[live] < g_end[live]]
+    seed, kind, fields, b_fwd, err = (np.concatenate(c, axis=-1)
+                                      for c in zip(*found))
+    order = np.argsort(seed)
+    return (seed[order], kind[order], fields[:, order], b_fwd[order],
+            err[order]), (rounds, extended, used)
 
 
 def _native_segment_recs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
@@ -592,17 +721,6 @@ def _recs_to_matches(recs, direction, k):
     return matches
 
 
-def _seed_in_rectangles(rectangles, apos, bpos, seedlen) -> bool:
-    """Does the seed rectangle overlap a previous match rectangle?
-    (ref: gt_diagbandseed_has_overlap_with_previous_match)"""
-    sa0, sa1 = apos + 1 - seedlen, apos
-    sb0, sb1 = bpos + 1 - seedlen, bpos
-    for (a0, a1, b0, b1) in rectangles:
-        if sa0 <= a1 and a0 <= sa1 and sb0 <= b1 and b0 <= sb1:
-            return True
-    return False
-
-
 def _diagband_filter(seg, apos, bpos, k, amaxlen, logw, mincov):
     """Per-seed diagonal-band coverage test of every segment at once
     (ref: diagband-struct.c). Seeds arrive sorted by (segment, bpos,
@@ -650,16 +768,13 @@ def _strand_pool(aenc, benc, direction, device, pools):
 def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
                         pa_pos, k, mincov, belowscore, params, selfcomp,
                         amaxlen, events, device, wave, pools):
-    matches = []
     n = pa_seq.size
     if n == 0:
-        return matches
-    logw = params.logdiagbandwidth
+        return []
     greedy_ctx = None
     if params.extension == "greedy":
         pmh, mad = params.greedy_params()
-        pol = params.polishing_info()
-        greedy_ctx = (pol, pmh, mad, params.history)
+        greedy_ctx = (params.polishing_info(), pmh, mad, params.history)
     # ---- pass 1: diagband coverage filter, all segments at once -------
     with trace.span("seedext.filter", pairs=n) as sp:
         seg_break = np.zeros(n, bool)
@@ -667,144 +782,92 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
         seg_break[1:] = (pa_seq[1:] != pa_seq[:-1]) | \
             (pb_seq[1:] != pb_seq[:-1])
         seg_starts = np.flatnonzero(seg_break)
-        seg_ends = np.append(seg_starts[1:], n)
+        seg = np.cumsum(seg_break) - 1
         pa_pos = pa_pos.astype(np.int64)
         pb_pos = pb_pos.astype(np.int64)
         if params.no_diagband_filter:
-            sel_all = np.ones(n, bool)
+            sel = np.ones(n, bool)
         else:
-            sel_all = _diagband_filter(np.cumsum(seg_break) - 1, pa_pos,
-                                       pb_pos, k, amaxlen, logw, mincov)
-        # only segments holding a selected seed take part in passes 2 and 3
-        kept = np.flatnonzero(np.logical_or.reduceat(sel_all, seg_starts))
-        a_starts = aenc.seq_startpos(np.arange(aenc.num_sequences))
-        b_starts = benc.seq_startpos(np.arange(benc.num_sequences))
-        segments = []
-        seg_bases = []
-        seq_cache: dict = {}
-        for s0, s1 in zip(seg_starts[kept].tolist(),
-                          seg_ends[kept].tolist()):
-            aseq, bseq = int(pa_seq[s0]), int(pb_seq[s0])
-            ukey = ("a", aseq)
-            if ukey not in seq_cache:
-                seq_cache[ukey] = _seq_codes(aenc, aseq, False)
-            vkey = ("b", bseq, direction)
-            if vkey not in seq_cache:
-                seq_cache[vkey] = _seq_codes(benc, bseq, direction == "P")
-            segments.append((aseq, bseq, seq_cache[ukey], seq_cache[vkey],
-                             selfcomp and aseq == bseq, pa_pos[s0:s1],
-                             pb_pos[s0:s1], sel_all[s0:s1]))
-            seg_bases.append((int(a_starts[aseq]), int(b_starts[bseq])))
-        sp.set(segments=len(segments))
+            sel = _diagband_filter(seg, pa_pos, pb_pos, k, amaxlen,
+                                   params.logdiagbandwidth, mincov)
+        # only segments holding a selected seed take part in the walk
+        kept = np.flatnonzero(np.logical_or.reduceat(sel, seg_starts))
+        sp.set(segments=int(kept.size))
 
-    # ---- pass 2: the device wave provider ----------------------------
+    # ---- pass 2: the selected seeds as flat arrays -------------------
     with trace.span("seedext.order") as sp:
-        order = []
-        for si, seg in enumerate(segments):
-            for i in np.nonzero(seg[7])[0]:
-                order.append((si, int(i)))
-        states = {si: [False, -1, []] for si in range(len(segments))}
-        provider = None
+        idx = np.flatnonzero(sel)
+        sa, sb = pa_pos[idx], pb_pos[idx]
+        sseg = np.searchsorted(kept, seg[idx])
+        g_end = np.searchsorted(sseg, np.arange(kept.size), "right")
+        aseq = pa_seq[seg_starts[kept]].astype(np.int64)
+        bseq = pb_seq[seg_starts[kept]].astype(np.int64)
+        same = (aseq == bseq) if selfcomp else np.zeros(kept.size, bool)
+        vlen = np.asarray(benc.seq_length(bseq), np.int64)
         device_ok = (greedy_ctx is not None and
                      30 <= params.history <= 64) or \
             (params.extension == "xdrop" and params.scores == XdropScores())
-        if order and device_ok:
-            strand_pool = _strand_pool(aenc, benc, direction, device, pools)
-            b_off = strand_pool[1]
-            pool_bases = [(ga, b_off + gb) for ga, gb in seg_bases]
-            provider = _WaveProvider(segments, order, states, k,
-                                     greedy_ctx, params.use_apos,
-                                     belowscore, strand_pool, pool_bases,
-                                     device, wave)
-        sp.set(candidates=len(order))
+        if device_ok:
+            pool, b_off, gp = _strand_pool(aenc, benc, direction, device,
+                                           pools)
+            ulen = np.asarray(aenc.seq_length(aseq), np.int64)
+            ga = np.asarray(aenc.seq_startpos(aseq), np.int64)
+            gb = b_off + np.asarray(benc.seq_startpos(bseq), np.int64)
 
-    # ---- pass 3: sequential skip/accept (reference order) ------------
+            def extend(s):
+                g = sseg[s]
+                cands = np.stack([ulen[g], vlen[g], same[g], sa[s] + 1 - k,
+                                  sb[s] + 1 - k, ga[g], gb[g]], axis=1)
+                return _batch_extensions(cands, np.full(s.size, k, np.int64),
+                                         greedy_ctx, belowscore, pool, gp,
+                                         device)
+        else:
+            seqs: dict = {}
+
+            def codes(enc, sq, rc):
+                key = (enc is aenc, sq, rc)
+                if key not in seqs:
+                    seqs[key] = _seq_codes(enc, sq, rc)
+                return seqs[key]
+
+            def extend(s):
+                return np.asarray([_extend_one_seed(
+                    codes(aenc, int(aseq[g]), False),
+                    codes(benc, int(bseq[g]), direction == "P"),
+                    bool(same[g]), a + 1 - k, b + 1 - k, k, belowscore,
+                    params.scores, greedy_ctx) for g, a, b in zip(
+                        sseg[s].tolist(), sa[s].tolist(), sb[s].tolist())],
+                    np.int64).reshape(-1, 8)
+        sp.set(candidates=int(idx.size))
+
+    # ---- pass 3: the walk in segment-parallel rounds -----------------
     with trace.span("seedext.walk", strand=direction) as sp:
-        for si, (aseq, bseq, useq, vseq, same_seq, apos, bpos, sel) \
-                in enumerate(segments):
-            st = states[si]
-            rectangles = st[2]            # (a_start, a_end, b_start, b_end)
-            for i in np.nonzero(sel)[0]:
-                haspreviousmatch, prev_b_end = st[0], st[1]
-                bp, ap = int(bpos[i]), int(apos[i])
-                if haspreviousmatch and params.use_apos == 0 and \
-                        prev_b_end >= bp:
-                    continue
-                if params.use_apos > 0 and _seed_in_rectangles(
-                        rectangles, ap, bp, k):
-                    continue
-                dbstart_rel = ap + 1 - k
-                querystart_rel = bp + 1 - k
-                if provider is not None:
-                    ext = provider.get(si, int(i))
-                else:
-                    ext = _extend_one_seed(useq, vseq, same_seq, dbstart_rel,
-                                           querystart_rel, k, belowscore,
-                                           params.scores, greedy_ctx)
-                if ext is None:
-                    if events is not None:
-                        events.append(("failed", k, aseq, dbstart_rel,
-                                       direction, bseq, querystart_rel))
-                    continue
-                u_l, v_l, sd_l, u_r, v_r, sd_r, mm_l, mm_r = ext
-                st[0] = True                  # haspreviousmatch
-                accepted = None
-                # combine modes BOTH / ONLY_LEFT / ONLY_RIGHT in order
-                # (ref: gt_extend_sesp mode loop)
-                for mode in range(params.max_combine_mode + 1):
-                    ul, vl, sl, ml = (u_l, v_l, sd_l, mm_l) if mode != 2 \
-                        else (0, 0, 0, 0)
-                    ur, vr, sr, mr = (u_r, v_r, sd_r, mm_r) if mode != 1 \
-                        else (0, 0, 0, 0)
-                    dblen = k + ul + ur
-                    querylen = k + vl + vr
-                    alignedlen = dblen + querylen
-                    if params.extension == "greedy":
-                        dist = sl + sr
-                        total_score = alignedlen - 3 * dist
-                    else:
-                        total_score = k * params.scores.mat + sl + sr
-                        dist = _score2distance(total_score, alignedlen)
-                    a_start = dbstart_rel - ul
-                    b_start = querystart_rel - vl
-                    if mode == 0:
-                        st[1] = b_start + querylen - 1   # prev_b_end
-                        rect = (a_start, a_start + dblen - 1,
-                                b_start, b_start + querylen - 1)
-                    # filters (ref: querymatch.c:722 check_final_generic)
-                    err = 200.0 * dist / alignedlen
-                    if err > params.errorpercentage:
-                        continue
-                    if alignedlen < 2 * params.userdefinedleastlength:
-                        continue
-                    # query start on the forward strand (ref: querymatch.c:561)
-                    b_start_fwd = b_start if direction == "F" \
-                        else len(vseq) - b_start - querylen
-                    accepted = SeedExtendMatch(
-                        dblen, aseq, a_start, direction, querylen, bseq,
-                        b_start_fwd, total_score, dist, 100.0 - err,
-                        dbstart_rel, querystart_rel, k, ml + mr, b_start)
-                    break
-                if params.use_apos == 2 or \
-                        (params.use_apos == 1 and accepted is not None):
-                    rectangles.append(rect)
-                # a same-sequence match shows only in its canonical
-                # orientation (ref: querymatch.c:357 gt_querymatch_ordered)
-                suppressed = False
-                if accepted is not None and selfcomp and aseq == bseq:
-                    if direction == "P":
-                        if not accepted.dbstart < accepted.querystart + 1:
-                            accepted, suppressed = None, True
-                    elif not accepted.dbstart < accepted.querystart:
-                        accepted, suppressed = None, True
-                if accepted is not None:
-                    matches.append(accepted)
-                    if events is not None:
-                        events.append(("match", accepted))
-                elif events is not None and not suppressed:
-                    events.append(("failed", k, aseq, dbstart_rel,
-                                   direction, bseq, querystart_rel))
-        sp.set(matches=len(matches))
+        (seed, kind, fields, b_fwd, err), (rounds, extended, used) = \
+            _walk_rounds(sa, sb, sseg, g_end, same, vlen, k, params,
+                         direction, extend, wave)
+        if events is None:
+            keep = kind == 1
+            seed, kind, fields = seed[keep], kind[keep], fields[:, keep]
+            b_fwd, err = b_fwd[keep], err[keep]
+        matches = []
+        g = sseg[seed]
+        for s, kd, gi, (a_start, dblen, b_start, querylen, score, dist,
+                        mm), bf, er in zip(
+                seed.tolist(), kind.tolist(), g.tolist(), fields.T.tolist(),
+                b_fwd.tolist(), err.tolist()):
+            if kd == 1:
+                m = SeedExtendMatch(
+                    dblen, int(aseq[gi]), a_start, direction, querylen,
+                    int(bseq[gi]), bf, score, dist, 100.0 - er,
+                    int(sa[s]) + 1 - k, int(sb[s]) + 1 - k, k, mm, b_start)
+                matches.append(m)
+                if events is not None:
+                    events.append(("match", m))
+            elif kd == 0 and events is not None:
+                events.append(("failed", k, int(aseq[gi]), int(sa[s]) + 1 - k,
+                               direction, int(bseq[gi]), int(sb[s]) + 1 - k))
+        sp.set(matches=len(matches), rounds=rounds, extended=extended,
+               used=used)
     return matches
 
 
@@ -812,7 +875,7 @@ def _strand_matches(aenc, benc, direction, pairs, k, mincov, belowscore,
                     params, selfcomp, amaxlen, events, dev, wave, engine,
                     pools):
     """One strand's matches from its joined seed pairs, through the
-    wave path or the fused host engine."""
+    rounds walk (engine "wave") or the fused host engine."""
     pa_seq, pb_seq, pb_pos, pa_pos = pairs
     if engine == "fused":
         if not pa_seq.size:

@@ -13,7 +13,7 @@ cell over the range-masked a-list.
 ``distributed_seed_extend`` is the full dispatch: cells are balanced by
 those counts, largest first onto the least loaded lane, one lane (a
 thread) per device of the mesh, and every lane runs its cells' whole
-pipeline (pairing, diagonal bands, the extension waves through K1, K2r
+pipeline (pairing, diagonal bands, the extension rounds through K1, K2r
 and K3, match records) on its own device, on a stream of its own. The
 output is reassembled in grid-cell order, so it is the single-device
 grid's line for line (the reference's thread-count invariance).

@@ -1,4 +1,4 @@
-"""genometools_torch seed_extend (device wave path, CPU plain kernels)
+"""genometools_torch seed_extend (the rounds walk, CPU plain kernels)
 against the reference seed_extend (its fused host engine on the CPU),
 greedy and xdrop, line for line."""
 
@@ -31,6 +31,63 @@ def _random_enc(seed, nseq=3, n=2500):
     return Encseq.from_string("|".join(parts))
 
 
+def _tandem_enc(arrays, length=1900, flank=50):
+    """One sequence a (unit, substitution rate, seed) of `arrays`: tandem
+    copies of a random unit, each copy diverged by its own substitutions,
+    between random flanks. A segment of such copies needs dozens of
+    extensions one after another, each skipping only some of the next
+    seeds."""
+    from genometools_tpu.core.encseq import Encseq
+    parts = []
+    for unit, sub, seed in arrays:
+        rng = np.random.default_rng(seed)
+        u = rng.integers(0, 4, unit)
+        copies = []
+        for _ in range(length // unit):
+            c = u.copy()
+            m = rng.random(unit) < sub
+            c[m] = (c[m] + rng.integers(1, 4, m.sum())) % 4
+            copies.append(c)
+        s = np.concatenate([rng.integers(0, 4, flank), *copies,
+                            rng.integers(0, 4, flank)])
+        parts.append("".join(np.array(list("acgt"))[s]))
+    return Encseq.from_string("|".join(parts))
+
+
+def _hairpin_enc(seed=4):
+    """Random sequences, each with an inverted repeat and, near its
+    middle, a hairpin: on the P strand the hairpin's seeds are
+    same-sequence overlapping instances, between seeds the walk
+    extends."""
+    from genometools_tpu.core.encseq import Encseq
+    rng = np.random.default_rng(seed)
+    comp = str.maketrans("acgt", "tgca")
+    parts = []
+    for _ in range(3):
+        x, y, b = ("".join(rng.choice(list("acgt"), n))
+                   for n in (100, 120, 1200))
+        rc = lambda z: z[::-1].translate(comp)
+        parts.append(b[:200] + y + b[200:595] + x + rc(x) + b[595:900] +
+                     rc(y) + b[900:])
+    return Encseq.from_string("|".join(parts))
+
+
+@contextlib.contextmanager
+def _walks():
+    """The attributes of the seedext.walk spans recorded inside."""
+    from genometools_torch import trace
+    trace.clear()
+    trace.enable()
+    walks: list = []
+    try:
+        yield walks
+        walks.extend(r.attrs for r in trace.records()
+                     if r.name == "seedext.walk")
+    finally:
+        trace.enable(False)
+        trace.clear()
+
+
 def _golden_enc(db):
     from genometools_tpu.core.encseq import Encseq
     return Encseq.load(str(GOLDEN / db / "idx"))
@@ -59,8 +116,9 @@ def test_random_inputs_match_reference(monkeypatch, extension, seed):
 
 @pytest.mark.parametrize("extension,seed", [("greedy", 31), ("xdrop", 32)])
 def test_small_waves_match_reference(monkeypatch, extension, seed):
-    """Many small waves: mispredicted skips start new waves, and the
-    lines still equal the reference's."""
+    """wave=2 caps each batch of extensions at two seeds: a round's
+    candidates go in several batches, and the lines still equal the
+    reference's."""
     from genometools_tpu.match import seed_extend as rse
     waves = []
     batch = tse._batch_extensions
@@ -73,7 +131,7 @@ def test_small_waves_match_reference(monkeypatch, extension, seed):
     got = [m.line() for m in tse.seed_extend(
         enc, None, tse.params_from_reference(p), device="cpu", wave=2)]
     assert got == ref and ref
-    assert len(waves) > 2, waves
+    assert max(waves) <= 2 < sum(waves), waves
 
 
 @pytest.mark.parametrize("extension", ["greedy", "xdrop"])
@@ -94,6 +152,120 @@ def test_failed_seed_events_match_reference(monkeypatch):
     line = lambda e: e if e[0] == "failed" else ("match", e[1].line())
     assert [line(e) for e in events] == [line(e) for e in ref_events]
     assert any(e[0] == "failed" for e in events)
+
+
+@pytest.mark.parametrize("extension", ["xdrop", "greedy"])
+def test_tandem_copies_match_reference(monkeypatch, extension):
+    """Diverged tandem copies: a segment's walk takes well over 12
+    rounds, and the lines equal the reference's fused engine."""
+    enc = _tandem_enc([(30, 0.08, 3), (40, 0.15, 2), (20, 0.15, 2)])
+    with _walks() as walks:
+        ref, got, _ = _both(enc, monkeypatch, seedlength=12, minidentity=80,
+                            extension=extension, userdefinedleastlength=30)
+    assert got == ref and ref
+    assert max(w["rounds"] for w in walks) > 15, walks
+
+
+def test_xdrop_events_match_reference(monkeypatch):
+    """xdrop events, failed seeds and the P strand's same-sequence
+    overlapping instances among them, in the reference's order."""
+    events = []
+    k = 12
+    ref, got, ref_events = _both(_hairpin_enc(), monkeypatch, events=events,
+                                 seedlength=k, minidentity=85,
+                                 extension="xdrop", userdefinedleastlength=20)
+    assert got == ref and ref
+    line = lambda e: e if e[0] == "failed" else ("match", e[1].line())
+    assert [line(e) for e in events] == [line(e) for e in ref_events]
+    failed = [e for e in events if e[0] == "failed"]
+    overlaps = [e for e in failed if e[4] == "P" and e[2] == e[5] and
+                e[3] + k - 1 >= e[6]]
+    assert overlaps and len(overlaps) < len(failed)
+
+
+@pytest.mark.parametrize("use_apos,extension,source", [
+    (1, "xdrop", "tandem"), (1, "greedy", "tandem"), (2, "xdrop", "tandem"),
+    (2, "greedy", "tandem"), (1, "xdrop", "hairpin"),
+    (2, "greedy", "hairpin")])
+def test_use_apos_matches_reference(monkeypatch, use_apos, extension,
+                                    source):
+    """-use_apos 1 and 2: seeds inside a previous match's rectangle are
+    skipped, on the F strand and among the P strand's overlapping
+    instances; the lines equal the reference package's and differ from
+    those of use_apos 0."""
+    from genometools_tpu.match import seed_extend as rse
+    if source == "tandem":
+        enc = _tandem_enc([(30, 0.08, 3), (20, 0.15, 2)], length=600)
+        kw = dict(minidentity=80, userdefinedleastlength=30)
+    else:
+        enc = _hairpin_enc()
+        kw = dict(minidentity=85, userdefinedleastlength=20)
+    kw.update(seedlength=12, extension=extension)
+    ref, got, _ = _both(enc, monkeypatch, use_apos=use_apos, **kw)
+    assert got == ref and ref
+    assert ref != [m.line() for m in rse.seed_extend(
+        enc, None, rse.SeedExtendParams(**kw))]
+
+
+@pytest.mark.parametrize("extension", ["xdrop", "greedy"])
+def test_host_route_matches_reference(monkeypatch, extension):
+    """Parameters the batches do not take (xdrop with non-unit scores,
+    greedy with a history under 30) take the host extension in the same
+    rounds: lines and events equal the reference's."""
+    from genometools_tpu.ops.xdrop import XdropScores
+    kw = dict(history=20) if extension == "greedy" else \
+        dict(scores=XdropScores(mat=2, mis=-3, ins=-3, del_=-3))
+    batches = []
+    monkeypatch.setattr(tse, "_batch_extensions",
+                        lambda *a: batches.append(a))
+    events = []
+    ref, got, ref_events = _both(_hairpin_enc(), monkeypatch, events=events,
+                                 seedlength=12, minidentity=85,
+                                 extension=extension,
+                                 userdefinedleastlength=20, **kw)
+    assert got == ref and ref
+    line = lambda e: e if e[0] == "failed" else ("match", e[1].line())
+    assert [line(e) for e in events] == [line(e) for e in ref_events]
+    assert not batches
+
+
+@pytest.mark.parametrize("source,extension", [
+    ("Duplicate.fna", "xdrop"), ("Duplicate.fna", "greedy"),
+    (21, "greedy"), (22, "xdrop")])
+def test_extensions_bounded_by_the_sequential_walk(monkeypatch, source,
+                                                   extension):
+    """The rounds extend at most twice the seeds the reference's
+    sequential walk extends (one host extension for each seed it
+    reaches, none for an overlapping instance), and use exactly
+    those."""
+    from genometools_tpu.match import seed_extend as rse
+    if isinstance(source, str):
+        enc = _golden_enc(source)
+        kw = dict(minidentity=90, userdefinedleastlength=14)
+    else:
+        enc = _random_enc(source)
+        kw = dict(seedlength=12, minidentity=85, userdefinedleastlength=20)
+    p = rse.SeedExtendParams(extension=extension, **kw)
+    monkeypatch.setenv("GT_TPU_NO_DEVICE_EXTEND", "1")
+    reached = []
+    one = rse._extend_one_seed
+    monkeypatch.setattr(rse, "_extend_one_seed", lambda *a: (
+        lambda e: reached.append(e is not None) or e)(one(*a)))
+    events = []
+    ref = [m.line() for m in rse.seed_extend(enc, None, p, events=events)]
+    lanes = []
+    batch = tse._batch_extensions
+    monkeypatch.setattr(tse, "_batch_extensions",
+                        lambda c, *a: lanes.append(len(c)) or batch(c, *a))
+    with _walks() as walks:
+        got = [m.line() for m in tse.seed_extend(
+            enc, None, tse.params_from_reference(p), device="cpu")]
+    assert got == ref and ref
+    extensions = sum(reached)
+    assert len(events) >= extensions
+    assert sum(w["used"] for w in walks) == extensions
+    assert sum(lanes) == sum(w["extended"] for w in walks)
+    assert extensions <= sum(lanes) <= 2 * extensions
 
 
 def test_fused_engine_is_the_reference_engine():
