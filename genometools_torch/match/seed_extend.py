@@ -12,7 +12,8 @@ every live segment at once, the next seeds its own sequential walk
 would reach, in one batch; the walk then consumes them in order, so the
 output equals the sequential engine's. A segment extends one seed in
 each of its first two rounds and twice as many in each round after,
-the speculative seeds held to twice the extensions the walk uses.
+the speculative seeds held to twice the extensions the walk uses, or
+to ROUND_MIN a round where that is more.
 
 The device path is the path: on a CUDA device the rounds' batches run
 K1, K2 and K3, on the CPU their plain versions; parameters the batches
@@ -33,7 +34,9 @@ lists and seed pairs), seedext.filter (the diagonal-band filter and the
 segments), seedext.order (the selected seeds' flat arrays and the
 strand pool's upload), seedext.walk (the rounds; rounds, extended: seeds
 sent to a batch, used: extensions the walk consumed), within it one
-seedext.wave for each batch of extensions (candidates, round).
+seedext.wave for each batch of extensions (candidates, round); in a
+greedy wave, one greedy.window for each pass of the flank window (cap:
+its width, lanes, retried: lanes sent on to the next, 8x wider pass).
 """
 
 from __future__ import annotations
@@ -61,6 +64,12 @@ from ..ops.xdrop_batch import xdrop_extend_batch_pool
 # candidates goes in several batches (the seedext cell's first round
 # holds 16,193, see PERF.md)
 WAVE = 131072
+# the fewest seeds a round may extend while its live segments have that
+# many to reach: a round costs its launches and syncs whatever it holds,
+# so where few segments are live (a genome's six against a read set's
+# thousands) speculation up to this size is not held to twice the
+# extensions used (PERF.md)
+ROUND_MIN = 4096
 
 
 @dataclass
@@ -424,21 +433,27 @@ def _batch_extensions(cands, k, greedy_ctx, belowscore, pool, gp, device):
         pending = np.arange(lanes.size)
         cap = CAP0
         while pending.size:
-            offs = offsets(cap, lanes[pending])
-            rev = np.full(pending.size, rev_side)
-            kl = k[lanes[pending]]
-            slack = mad + history + kl
-            # skip_chunked=False: flanks longer than K1's windows run
-            # through the chunk loop and K2 (the reference's wave path
-            # skips that route for a TPU-only cost; see ops/greedy_batch)
-            r = greedy_extend_batch_pool(
-                pool, *offs, rev, seedlengths=kl, perc_mat_history=pmh,
-                maxalignedlendifference=mad, pol_info=pol, history=history,
-                device=device, gp=gp, skip_chunked=False)
-            al, row = r["alignedlen"].astype(np.int64), r["row"]
-            dist, mm, touched = r["distance"], r["mismatches"], r["touched"]
-            retry = (maxflank[pending] > cap) & \
-                ((al >= 2 * cap - slack) | touched)
+            with trace.span("greedy.window", cap=cap,
+                            lanes=int(pending.size)) as sp:
+                offs = offsets(cap, lanes[pending])
+                rev = np.full(pending.size, rev_side)
+                kl = k[lanes[pending]]
+                slack = mad + history + kl
+                # skip_chunked=False: flanks longer than K1's windows run
+                # through the chunk loop and K2 (the reference's wave
+                # path skips that route for a TPU-only cost; see
+                # ops/greedy_batch)
+                r = greedy_extend_batch_pool(
+                    pool, *offs, rev, seedlengths=kl, perc_mat_history=pmh,
+                    maxalignedlendifference=mad, pol_info=pol,
+                    history=history, device=device, gp=gp,
+                    skip_chunked=False)
+                al, row = r["alignedlen"].astype(np.int64), r["row"]
+                dist, mm, touched = (r["distance"], r["mismatches"],
+                                     r["touched"])
+                retry = (maxflank[pending] > cap) & \
+                    ((al >= 2 * cap - slack) | touched)
+                sp.set(retried=int(retry.sum()))
             fin = ~retry
             res[pending[fin]] = np.stack(
                 [row[fin], al[fin] - row[fin], dist[fin], mm[fin]], axis=1)
@@ -476,9 +491,10 @@ def _depth(taken: np.ndarray, spare: int) -> np.ndarray:
     first two rounds (most segments need one or two extensions), then
     twice as many in each round after. The seeds past the first of each
     segment are speculative; while they would pass `spare` (twice the
-    extensions the walk used so far, less those it made), each
-    segment's share is cut in proportion, so the walk never extends
-    more than twice the seeds it uses."""
+    extensions the walk used so far, less those it made, or what a
+    round of ROUND_MIN seeds leaves), each segment's share is cut in
+    proportion, so the walk never extends more than twice the seeds it
+    uses, or ROUND_MIN a round."""
     extra = np.left_shift(1, np.clip(taken - 1, 0, 20)) - 1
     total = int(extra.sum())
     if total > spare:
@@ -551,7 +567,10 @@ def _walk_rounds(sa, sb, sseg, g_end, same, vlen, k, params, direction,
     int64 (n, 8) rows; the walk then consumes them in order, and a seed
     that a new state skips was extended for nothing, which changes no
     result. Same-sequence overlapping instances the walk reaches are
-    failed seeds without an extension.
+    failed seeds without an extension. With use_apos 0 the seed a walk
+    reaches after a row depends on that row alone, so each segment's
+    rows are consumed as a chain (_consume_chains); with use_apos the
+    rectangles of earlier matches decide, a step at a time.
 
     sa, sb, sseg: the selected seeds' apos, bpos and segment, in
     processing order (segment, then bpos and apos); g_end: each
@@ -602,7 +621,8 @@ def _walk_rounds(sa, sb, sseg, g_end, same, vlen, k, params, direction,
             good = np.flatnonzero(~ovl & ~dead)
         lo = reach(live, ptr[live])
         p = np.searchsorted(good, lo)
-        c = np.minimum(_depth(taken[live], 2 * used - extended),
+        c = np.minimum(_depth(taken[live], max(2 * used - extended,
+                                               ROUND_MIN - live.size)),
                        np.searchsorted(good, g_end[live]) - p)
         go = c > 0
         head = good[np.minimum(p, good.size - 1)] if good.size else lo
@@ -626,40 +646,44 @@ def _walk_rounds(sa, sb, sseg, g_end, same, vlen, k, params, direction,
         kind, pend, rect, info = _accept(
             np.concatenate(exts), k, sa[batch] + 1 - k, sb[batch] + 1 - k,
             vlen[g], same[g], params, direction)
-        add = np.full(batch.size, use_apos == 2) | \
-            ((use_apos == 1) & (kind > 0))
         # consume the rows in each segment's walk order
         used_rows = np.zeros(batch.size, bool)
-        act = np.arange(live.size)
-        cur = p.copy()
-        while act.size:
-            gs, row = live[act], base[act] + cur[act] - p[act]
-            used_rows[row] = True
-            has_prev[gs] = True
-            prev_b_end[gs] = pend[row]
-            s = batch[row]
-            if use_apos != 0 and add[row].any():
-                r = row[add[row]]
-                t = _ranges(batch[r] + 1, g_end[sseg[batch[r]]])
-                a0, a1, b0, b1 = np.repeat(rect[:, r], np.maximum(
-                    g_end[sseg[batch[r]]] - batch[r] - 1, 0), axis=1)
-                dead[t[(sa[t] + 1 - k <= a1) & (a0 <= sa[t]) &
-                       (sb[t] + 1 - k <= b1) & (b0 <= sb[t])]] = True
-            nxt = reach(gs, s + 1)
-            q = np.searchsorted(good, nxt)
-            lim = p[act] + c[act]
-            if use_apos != 0:
+        if use_apos == 0:
+            _consume_chains(batch, pend, base, p, c, live, sseg, skey, span,
+                            good, used_rows, has_prev, prev_b_end, ptr,
+                            reached_overlaps)
+        else:
+            # a match's rectangle takes the seeds in it out of the walk
+            add = (use_apos == 2) | (kind > 0)
+            act = np.arange(live.size)
+            cur = p.copy()
+            while act.size:
+                gs, row = live[act], base[act] + cur[act] - p[act]
+                used_rows[row] = True
+                has_prev[gs] = True
+                prev_b_end[gs] = pend[row]
+                s = batch[row]
+                if add[row].any():
+                    r = row[add[row]]
+                    t = _ranges(batch[r] + 1, g_end[sseg[batch[r]]])
+                    a0, a1, b0, b1 = np.repeat(rect[:, r], np.maximum(
+                        g_end[sseg[batch[r]]] - batch[r] - 1, 0), axis=1)
+                    dead[t[(sa[t] + 1 - k <= a1) & (a0 <= sa[t]) &
+                           (sb[t] + 1 - k <= b1) & (b0 <= sb[t])]] = True
+                nxt = s + 1
+                q = np.searchsorted(good, nxt)
+                lim = p[act] + c[act]
                 while True:
                     m = np.flatnonzero(q < lim)
                     m = m[dead[good[q[m]]]]
                     if not m.size:
                         break
                     q[m] += 1
-            inb = q < lim
-            reached_overlaps(nxt[inb], good[q[inb]])
-            ptr[gs[~inb]] = nxt[~inb]
-            cur[act[inb]] = q[inb]
-            act = act[inb]
+                inb = q < lim
+                reached_overlaps(nxt[inb], good[q[inb]])
+                ptr[gs[~inb]] = nxt[~inb]
+                cur[act[inb]] = q[inb]
+                act = act[inb]
         used += int(used_rows.sum())
         fields, b_fwd, err = info
         found.append((batch[used_rows], kind[used_rows],
@@ -671,6 +695,37 @@ def _walk_rounds(sa, sb, sseg, g_end, same, vlen, k, params, direction,
     order = np.argsort(seed)
     return (seed[order], kind[order], fields[:, order], b_fwd[order],
             err[order]), (rounds, extended, used)
+
+
+def _consume_chains(batch, pend, base, p, c, live, sseg, skey, span, good,
+                    used_rows, has_prev, prev_b_end, ptr, reached_overlaps):
+    """A round's consumption where the seed a walk reaches next depends
+    on the row it extended alone (use_apos 0): the first seed past the
+    row's prev_b_end. That next row is found for every row at once; each
+    segment's walk is then the chain of next rows from its first, in
+    which a segment with thousands of rows a round (a genome's few
+    segments) costs a list lookup a row. Marks the used rows, and sets
+    each segment's state and pointer from its chain's last row."""
+    j = np.repeat(np.arange(live.size), c)     # each row's segment
+    nxt = np.maximum(batch + 1, np.searchsorted(
+        skey, sseg[batch] * span + pend, "right"))
+    q = np.searchsorted(good, nxt)
+    inb = q < (p + c)[j]
+    following = np.where(inb, base[j] + q - p[j], -1).tolist()
+    chain = []
+    for r in base.tolist():
+        while r >= 0:
+            chain.append(r)
+            r = following[r]
+    rows = np.asarray(chain, np.int64)
+    used_rows[rows] = True
+    mid = rows[inb[rows]]
+    reached_overlaps(nxt[mid], good[q[mid]])
+    last = rows[~inb[rows]]                  # one a segment, in order
+    gs = live[j[last]]
+    has_prev[gs] = True
+    prev_b_end[gs] = pend[last]
+    ptr[gs] = nxt[last]
 
 
 def _native_segment_recs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,

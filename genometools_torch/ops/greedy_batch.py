@@ -36,6 +36,13 @@ H100, and the route changes where a lane runs, never its result.
 
 Every lane is bit-exact against the scalar engine
 ``ops/greedy.py::greedy_extend``.
+
+Spans (``genometools_torch.trace``): greedy.batch (lanes, symbols: the
+flanks' total length) around a call, within it greedy.k1 (lanes,
+undone: lanes that fit K1 and are not finished there), greedy.rescue
+(lanes), greedy.resident (lanes, gave_up: lanes the chunk loop left to
+the host; greedy.chunk on the host-driven route) and greedy.host
+(lanes, symbols).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.native import greedy_batch_native
 from ..device import resolve_device
 from .chunk_loop import DONE, chunk_loop
@@ -168,72 +176,86 @@ def greedy_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
     todo = np.ones(N, bool)
     if N == 0:
         return dict(results, died=died, fallback=fallback, touched=touched)
-    T = pool.size
-    if gp is None:
-        gp = upload_pool(pool, dev)
-    starts_u = torch.from_numpy(np.where(rev, T - u_off - u_len, u_off))
-    starts_v = torch.from_numpy(np.where(rev, T - v_off - v_len, v_off))
-    desc = [t.to(dev) for t in (starts_u, torch.from_numpy(u_len), starts_v,
-                                torch.from_numpy(v_len),
-                                torch.from_numpy(rev), torch.from_numpy(sl))]
+    with trace.span("greedy.batch", lanes=N) as sp:
+        if sp:
+            sp.set(symbols=int(u_len.sum() + v_len.sum()))
+        T = pool.size
+        if gp is None:
+            gp = upload_pool(pool, dev)
+        starts_u = torch.from_numpy(np.where(rev, T - u_off - u_len, u_off))
+        starts_v = torch.from_numpy(np.where(rev, T - v_off - v_len, v_off))
+        desc = [t.to(dev) for t in (starts_u, torch.from_numpy(u_len),
+                                    starts_v, torch.from_numpy(v_len),
+                                    torch.from_numpy(rev),
+                                    torch.from_numpy(sl))]
 
-    def run(Fs, d_tiers, GENS):
-        idx = torch.from_numpy(Fs).to(dev)
-        out, _ = greedy_full(gp, *(a[idx] for a in desc), *sc, cfg.FULL_W,
-                             d_tiers, GENS)
-        out = out.cpu().numpy()
-        done_o = out[4] != 0
-        fin = Fs[done_o]
-        results["alignedlen"][fin] = out[0][done_o]
-        results["row"][fin] = out[1][done_o]
-        results["distance"][fin] = out[2][done_o]
-        results["mismatches"][fin] = out[3][done_o]
-        died[fin] = out[5][done_o] != 0
-        todo[fin] = False
-        stats["kernel_lanes"] += int(fin.size)
+        def run(Fs, d_tiers, GENS):
+            idx = torch.from_numpy(Fs).to(dev)
+            out, _ = greedy_full(gp, *(a[idx] for a in desc), *sc,
+                                 cfg.FULL_W, d_tiers, GENS)
+            out = out.cpu().numpy()
+            done_o = out[4] != 0
+            fin = Fs[done_o]
+            results["alignedlen"][fin] = out[0][done_o]
+            results["row"][fin] = out[1][done_o]
+            results["distance"][fin] = out[2][done_o]
+            results["mismatches"][fin] = out[3][done_o]
+            died[fin] = out[5][done_o] != 0
+            todo[fin] = False
+            stats["kernel_lanes"] += int(fin.size)
 
-    fits = (np.maximum(u_len, v_len) <= cfg.FULL_W) & (cfg.FULL_W > 0)
-    Fs = np.flatnonzero(fits)
-    if Fs.size:
-        run(Fs, cfg.FULL_D, cfg.FULL_GENS)
-    Fs = np.flatnonzero(todo & fits)
-    if cfg.RESCUE is not None and Fs.size:
-        run(Fs, (cfg.RESCUE[0],), cfg.RESCUE[1])
+        fits = (np.maximum(u_len, v_len) <= cfg.FULL_W) & (cfg.FULL_W > 0)
+        Fs = np.flatnonzero(fits)
+        if Fs.size:
+            with trace.span("greedy.k1", lanes=int(Fs.size)) as k1:
+                run(Fs, cfg.FULL_D, cfg.FULL_GENS)
+                k1.set(undone=int((todo & fits).sum()))
+        Fs = np.flatnonzero(todo & fits)
+        if cfg.RESCUE is not None and Fs.size:
+            with trace.span("greedy.rescue", lanes=int(Fs.size)):
+                run(Fs, (cfg.RESCUE[0],), cfg.RESCUE[1])
 
-    rest = np.flatnonzero(todo)
-    if rest.size and not skip_chunked:
-        extend, counter = (_resident_extend, "resident_lanes") \
-            if cfg.RESIDENT else (_chunk_extend, "chunk_lanes")
-        out = extend(desc, rest, sc, cfg, gp)
-        ok = out["route"] == DONE
-        fin = rest[ok]
-        for j, k in enumerate(("alignedlen", "row", "distance",
-                               "mismatches")):
-            results[k][fin] = out["best"][ok, j]
-        died[fin] = out["died"][ok]
-        todo[fin] = False
-        stats[counter] += int(fin.size)
+        rest = np.flatnonzero(todo)
+        if rest.size and not skip_chunked:
+            extend, counter = (_resident_extend, "resident_lanes") \
+                if cfg.RESIDENT else (_chunk_extend, "chunk_lanes")
+            with trace.span("greedy.resident" if cfg.RESIDENT else
+                            "greedy.chunk", lanes=int(rest.size)) as rs:
+                out = extend(desc, rest, sc, cfg, gp)
+                ok = out["route"] == DONE
+                rs.set(gave_up=int(rest.size - ok.sum()))
+            fin = rest[ok]
+            for j, k in enumerate(("alignedlen", "row", "distance",
+                                   "mismatches")):
+                results[k][fin] = out["best"][ok, j]
+            died[fin] = out["died"][ok]
+            todo[fin] = False
+            stats[counter] += int(fin.size)
 
-    rest = np.flatnonzero(todo)
-    fallback[rest] = True
-    if rest.size:
-        stats["host_lanes"] += int(rest.size)
-        us, vs = pool_flanks(pool, u_off, u_len, v_off, v_len, rev, rest)
-        pol = pol_info if pol_info is not None else \
-            PolishingInfo.new(float(errorpercentage), history,
-                              matchscore_bias)
-        res = greedy_batch_native(
-            us, vs, max_history=history, perc_mat_history=perc_mat_history,
-            maxalignedlendifference=maxalignedlendifference,
-            seedlengths=sl[rest], pol=pol)
-        if res is None:
-            raise RuntimeError("the native host engine is unavailable")
-        results["alignedlen"][rest] = res[:, 0]
-        results["row"][rest] = res[:, 1]
-        results["distance"][rest] = res[:, 2]
-        results["mismatches"][rest] = res[:, 3]
-        died[rest] = res[:, 4] != 0
-        touched[rest] = res[:, 5] != 0
+        rest = np.flatnonzero(todo)
+        fallback[rest] = True
+        if rest.size:
+            stats["host_lanes"] += int(rest.size)
+            us, vs = pool_flanks(pool, u_off, u_len, v_off, v_len, rev, rest)
+            pol = pol_info if pol_info is not None else \
+                PolishingInfo.new(float(errorpercentage), history,
+                                  matchscore_bias)
+            with trace.span("greedy.host", lanes=int(rest.size),
+                            symbols=int(u_len[rest].sum() +
+                                        v_len[rest].sum())):
+                res = greedy_batch_native(
+                    us, vs, max_history=history,
+                    perc_mat_history=perc_mat_history,
+                    maxalignedlendifference=maxalignedlendifference,
+                    seedlengths=sl[rest], pol=pol)
+            if res is None:
+                raise RuntimeError("the native host engine is unavailable")
+            results["alignedlen"][rest] = res[:, 0]
+            results["row"][rest] = res[:, 1]
+            results["distance"][rest] = res[:, 2]
+            results["mismatches"][rest] = res[:, 3]
+            died[rest] = res[:, 4] != 0
+            touched[rest] = res[:, 5] != 0
     return dict(results, died=died, fallback=fallback, touched=touched)
 
 

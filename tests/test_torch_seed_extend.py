@@ -157,7 +157,9 @@ def test_failed_seed_events_match_reference(monkeypatch):
 @pytest.mark.parametrize("extension", ["xdrop", "greedy"])
 def test_tandem_copies_match_reference(monkeypatch, extension):
     """Diverged tandem copies: a segment's walk takes well over 12
-    rounds, and the lines equal the reference's fused engine."""
+    rounds (with no floor under a round, ROUND_MIN 0), and the lines
+    equal the reference's fused engine."""
+    monkeypatch.setattr(tse, "ROUND_MIN", 0)
     enc = _tandem_enc([(30, 0.08, 3), (40, 0.15, 2), (20, 0.15, 2)])
     with _walks() as walks:
         ref, got, _ = _both(enc, monkeypatch, seedlength=12, minidentity=80,
@@ -234,10 +236,33 @@ def test_host_route_matches_reference(monkeypatch, extension):
     (21, "greedy"), (22, "xdrop")])
 def test_extensions_bounded_by_the_sequential_walk(monkeypatch, source,
                                                    extension):
-    """The rounds extend at most twice the seeds the reference's
-    sequential walk extends (one host extension for each seed it
-    reaches, none for an overlapping instance), and use exactly
-    those."""
+    """With no floor under a round (ROUND_MIN 0), the rounds extend at
+    most twice the seeds the reference's sequential walk extends (one
+    host extension for each seed it reaches, none for an overlapping
+    instance), and use exactly those."""
+    monkeypatch.setattr(tse, "ROUND_MIN", 0)
+    extensions, lanes, _ = _walk_extensions(monkeypatch, source, extension)
+    assert extensions <= lanes <= 2 * extensions
+
+
+@pytest.mark.parametrize("source,extension", [
+    ("Duplicate.fna", "xdrop"), ("Duplicate.fna", "greedy"),
+    (21, "greedy"), (22, "xdrop")])
+def test_round_floor_bounds_the_extensions(monkeypatch, source, extension):
+    """With the floor under a round (ROUND_MIN), the rounds extend at
+    most twice the seeds the sequential walk extends and ROUND_MIN more
+    a round, use exactly those, and take no more rounds than without
+    it."""
+    extensions, lanes, rounds = _walk_extensions(monkeypatch, source,
+                                                 extension)
+    assert extensions <= lanes <= 2 * extensions + tse.ROUND_MIN * rounds
+    monkeypatch.setattr(tse, "ROUND_MIN", 0)
+    assert rounds <= _walk_extensions(monkeypatch, source, extension)[2]
+
+
+def _walk_extensions(monkeypatch, source, extension):
+    """(seeds the reference's sequential walk extends, seeds the rounds
+    extend, rounds) of one run, its lines equal to the reference's."""
     from genometools_tpu.match import seed_extend as rse
     if isinstance(source, str):
         enc = _golden_enc(source)
@@ -260,12 +285,13 @@ def test_extensions_bounded_by_the_sequential_walk(monkeypatch, source,
     with _walks() as walks:
         got = [m.line() for m in tse.seed_extend(
             enc, None, tse.params_from_reference(p), device="cpu")]
+    monkeypatch.undo()
     assert got == ref and ref
     extensions = sum(reached)
     assert len(events) >= extensions
     assert sum(w["used"] for w in walks) == extensions
     assert sum(lanes) == sum(w["extended"] for w in walks)
-    assert extensions <= sum(lanes) <= 2 * extensions
+    return extensions, sum(lanes), sum(w["rounds"] for w in walks)
 
 
 def test_fused_engine_is_the_reference_engine():
