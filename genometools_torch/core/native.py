@@ -8,10 +8,11 @@ greedy and xdrop batches, the fused seed_extend engine, the maximal-pairs
 walks and the match-line writer), of tallymer (the ESA walk, the
 ESA-free counter, the .mer lookup, the search-line writer) and of
 readjoiner (the FASTA read cleaner, the SPM join, the unitig walk).
-The C++ source is the repository's shared ``native/gtnative.cpp``; it
-is compiled on demand with g++ -O3 into ``genometools_torch/_build/``
-and loaded via ctypes. Every function returns None when the library
-cannot be built.
+The C++ sources are the repository's shared ``native/gtnative.cpp`` and
+the port's own ``csrc/diagband.cpp`` (seed_extend's diagonal-band
+filter); they are compiled on demand with g++ -O3 into one library in
+``genometools_torch/_build/`` and loaded via ctypes. Every function
+returns None when the library cannot be built.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from pathlib import Path
 import numpy as np
 
 _REPO = Path(__file__).resolve().parents[2]
-_SRC = _REPO / "native" / "gtnative.cpp"
+_SRCS = (_REPO / "native" / "gtnative.cpp",
+         Path(__file__).resolve().parents[1] / "csrc" / "diagband.cpp")
 _CACHE = Path(__file__).resolve().parents[1] / "_build"
 
 _lib = None
@@ -35,9 +37,12 @@ _tried = False
 _lock = threading.Lock()          # one build and load, whichever thread
 
 def _compile() -> Path | None:
-    if not _SRC.exists():
+    if not all(src.exists() for src in _SRCS):
         return None
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for src in _SRCS:
+        h.update(src.read_bytes())
+    tag = h.hexdigest()[:16]
     out = _CACHE / f"gtnative-{tag}.so"
     if out.exists():
         return out
@@ -45,7 +50,7 @@ def _compile() -> Path | None:
     with tempfile.TemporaryDirectory(dir=str(_CACHE)) as td:
         tmp = Path(td) / "gtnative.so"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-pthread", "-std=c++17", str(_SRC), "-o", str(tmp)]
+               "-pthread", "-std=c++17", *map(str, _SRCS), "-o", str(tmp)]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         except (subprocess.SubprocessError, FileNotFoundError):
@@ -122,6 +127,12 @@ def _bind(lib):
             ctypes.POINTER(u64p), pp, pp, pp, pp]
     except AttributeError:
         pass
+    for fn, ip in ((lib.gt_diagband_select_i32, i32p),
+                   (lib.gt_diagband_select_i64, i64p)):
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ip, ip, ip, ip, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_int, i64p, i64p, i64p, i64p, i64p]
     return lib
 
 
@@ -435,8 +446,43 @@ def seed_pair_join_native(alist, blist, selfcomp: bool,
             ctypes.byref(oap))
     if cnt < 0:
         return None
-    return tuple(_take_array(lib, p, cnt).astype(np.int64)
-                 for p in (oas, obs, obp, oap))
+    return tuple(_take_array(lib, p, cnt) for p in (oas, obs, obp, oap))
+
+
+def diagband_select_native(pa_seq, pb_seq, pb_pos, pa_pos, *, k: int,
+                           amaxlen: int, logw: int, mincov: int,
+                           use_filter: bool):
+    """seed_extend's diagonal-band filter (``csrc/diagband.cpp``) over
+    joined seed pairs sorted by (aseq, bseq, bpos, apos): the native
+    join's int32 planes as they are, any other input as int64. Returns
+    (idx, sseg, kstart, g_end) int64 arrays: the kept pair indices in
+    ascending order, each kept seed's ordinal among the segments that
+    keep one, those segments' first pair indices, and each one's end in
+    idx. use_filter False keeps every seed."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the native diagonal-band filter is unavailable")
+    planes = (pa_seq, pb_seq, pb_pos, pa_pos)
+    if len({a.shape for a in planes}) != 1 or pa_seq.ndim != 1:
+        raise ValueError("the seed pairs' planes must be 1-d and of one "
+                         "length")
+    if all(a.dtype == np.int32 for a in planes):
+        fn, ip = lib.gt_diagband_select_i32, ctypes.POINTER(ctypes.c_int32)
+        planes = [np.ascontiguousarray(a) for a in planes]
+    else:
+        fn, ip = lib.gt_diagband_select_i64, ctypes.POINTER(ctypes.c_int64)
+        planes = [np.ascontiguousarray(a, np.int64) for a in planes]
+    n = planes[0].size
+    idx, sseg, kstart, g_end = (np.empty(n, np.int64) for _ in range(4))
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    nkept = ctypes.c_int64(0)
+    nsel = fn(*(a.ctypes.data_as(ip) for a in planes), n, int(k),
+              int(amaxlen), int(logw), int(mincov), int(use_filter),
+              *(a.ctypes.data_as(i64p) for a in (idx, sseg, kstart, g_end)),
+              ctypes.byref(nkept))
+    if nsel < 0:
+        raise ValueError("a seed pair lies below the lowest diagonal band")
+    return idx[:nsel], sseg[:nsel], kstart[:nkept.value], g_end[:nkept.value]
 
 
 def seedext_greedy_run_native(aflat, bflat, a_start, a_len, b_start, b_len,

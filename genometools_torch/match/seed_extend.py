@@ -30,8 +30,9 @@ grid runs the same pipeline per cell with either engine; -maxmat
 (``maximal_exact_matches``) is the reference's host code.
 
 Spans (``genometools_torch.trace``), per strand: seedext.seeds (k-mer
-lists and seed pairs), seedext.filter (the diagonal-band filter and the
-segments), seedext.order (the selected seeds' flat arrays and the
+lists and seed pairs), seedext.filter (the diagonal-band filter, one
+native pass over the pairs: pairs, segments kept, selected seeds, route),
+seedext.order (the selected seeds' flat arrays and the
 strand pool's upload), seedext.walk (the rounds; rounds, extended: seeds
 sent to a batch, used: extensions the walk consumed), within it one
 seedext.wave for each batch of extensions (candidates, round); in a
@@ -49,7 +50,8 @@ import numpy as np
 from .. import trace
 from ..core.chardef import is_special
 from ..core.encseq import Encseq
-from ..core.native import (get_lib, greedy_batch_native, kmer_list_native,
+from ..core.native import (diagband_select_native, get_lib,
+                           greedy_batch_native, kmer_list_native,
                            seed_pair_join_native, seedext_greedy_run_native,
                            xdrop_batch_native)
 from ..device import resolve_device
@@ -776,31 +778,6 @@ def _recs_to_matches(recs, direction, k):
     return matches
 
 
-def _diagband_filter(seg, apos, bpos, k, amaxlen, logw, mincov):
-    """Per-seed diagonal-band coverage test of every segment at once
-    (ref: diagband-struct.c). Seeds arrive sorted by (segment, bpos,
-    apos), so a stable sort by (segment, band) makes each band an
-    ascending-bpos run in which a seed covers min(k, bpos - previous
-    bpos) new positions (k for the first). A seed passes when its band
-    and the better of the two neighbouring bands cover mincov."""
-    band = ((amaxlen + bpos - apos) >> logw) + 1    # neighbours stay >= 0
-    key = seg * (int(band.max()) + 2) + band
-    order = np.argsort(key, kind="stable")
-    ks, bs = key[order], bpos[order]
-    first = np.ones(ks.size, bool)
-    first[1:] = ks[1:] != ks[:-1]
-    contrib = np.full(ks.size, k, np.int64)
-    contrib[1:] = np.where(first[1:], k, np.minimum(k, bs[1:] - bs[:-1]))
-    starts = np.flatnonzero(first)
-    bkeys, cover = ks[starts], np.add.reduceat(contrib, starts)
-
-    def covered(q):
-        i = np.searchsorted(bkeys, q).clip(max=bkeys.size - 1)
-        return np.where(bkeys[i] == q, cover[i], 0)
-    return covered(key) + np.maximum(covered(key - 1),
-                                     covered(key + 1)) >= mincov
-
-
 def _strand_pool(aenc, benc, direction, device, pools):
     """(pool, b offset, uploaded pool) of a strand, made and uploaded
     once (pools caches them by direction: the grid keeps both strands'
@@ -830,34 +807,23 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
     if params.extension == "greedy":
         pmh, mad = params.greedy_params()
         greedy_ctx = (params.polishing_info(), pmh, mad, params.history)
-    # ---- pass 1: diagband coverage filter, all segments at once -------
+    # ---- pass 1: diagband coverage filter, one native pass ------------
     with trace.span("seedext.filter", pairs=n) as sp:
-        seg_break = np.zeros(n, bool)
-        seg_break[0] = True
-        seg_break[1:] = (pa_seq[1:] != pa_seq[:-1]) | \
-            (pb_seq[1:] != pb_seq[:-1])
-        seg_starts = np.flatnonzero(seg_break)
-        seg = np.cumsum(seg_break) - 1
-        pa_pos = pa_pos.astype(np.int64)
-        pb_pos = pb_pos.astype(np.int64)
-        if params.no_diagband_filter:
-            sel = np.ones(n, bool)
-        else:
-            sel = _diagband_filter(seg, pa_pos, pb_pos, k, amaxlen,
-                                   params.logdiagbandwidth, mincov)
+        idx, sseg, kstart, g_end = diagband_select_native(
+            pa_seq, pb_seq, pb_pos, pa_pos, k=k, amaxlen=amaxlen,
+            logw=params.logdiagbandwidth, mincov=mincov,
+            use_filter=not params.no_diagband_filter)
         # only segments holding a selected seed take part in the walk
-        kept = np.flatnonzero(np.logical_or.reduceat(sel, seg_starts))
-        sp.set(segments=int(kept.size))
+        sp.set(segments=int(kstart.size), selected=int(idx.size),
+               route="native")
 
     # ---- pass 2: the selected seeds as flat arrays -------------------
     with trace.span("seedext.order") as sp:
-        idx = np.flatnonzero(sel)
-        sa, sb = pa_pos[idx], pb_pos[idx]
-        sseg = np.searchsorted(kept, seg[idx])
-        g_end = np.searchsorted(sseg, np.arange(kept.size), "right")
-        aseq = pa_seq[seg_starts[kept]].astype(np.int64)
-        bseq = pb_seq[seg_starts[kept]].astype(np.int64)
-        same = (aseq == bseq) if selfcomp else np.zeros(kept.size, bool)
+        sa = pa_pos[idx].astype(np.int64)
+        sb = pb_pos[idx].astype(np.int64)
+        aseq = pa_seq[kstart].astype(np.int64)
+        bseq = pb_seq[kstart].astype(np.int64)
+        same = (aseq == bseq) if selfcomp else np.zeros(kstart.size, bool)
         vlen = np.asarray(benc.seq_length(bseq), np.int64)
         device_ok = (greedy_ctx is not None and
                      30 <= params.history <= 64) or \
@@ -1124,6 +1090,7 @@ def maximal_exact_matches(aenc: Encseq, benc: Encseq | None,
         pa_seq, pb_seq, pb_pos, pa_pos = build_seed_pairs(
             alist, blist, selfcomp, None, inseqseeds=True,
             mindist=seedlength)
+        pa_pos, pb_pos = pa_pos.astype(np.int64), pb_pos.astype(np.int64)
         # group by (aseq, bseq, diagonal); seeds on one diagonal with
         # contiguous endpos runs merge into one exact match; diagonals
         # come as bpos - apos ascending (ref: diagbandseed.c

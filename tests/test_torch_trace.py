@@ -221,6 +221,8 @@ def test_seed_loop_spans(spans):
     orders = [r for r in recs if r.name == "seedext.order"]
     filters = [r for r in recs if r.name == "seedext.filter"]
     assert all(f.attrs["segments"] > 0 for f in filters)
+    assert all(0 < f.attrs["selected"] <= f.attrs["pairs"]
+               and f.attrs["route"] == "native" for f in filters)
     assert all(o.attrs["candidates"] > 0 for o in orders)
 
 
