@@ -53,10 +53,9 @@ Run from the root of a checkout. Phases, each printed with its seconds:
      K2r against its plain version on all 65,536 tasks, lane by lane (a
      main-path lane count: each resident warp takes some 40 lanes from
      the queue). --gens repeats the two K2 routes at other chunk GENS;
-  8. suffixerator_e2e (the library's end-to-end writer) at at1MB and at
-     32 Mbp: every file equals the slow path's (Encseq.save + build_esa +
-     write_esa), at1MB's index files equal the goldens; its wall time
-     beside the host SA-IS + Kasai engines';
+  8. suffixerator_e2e (the CLI's writer as a library entry) at at1MB and
+     at 32 Mbp: every file equals the slow path's (Encseq.save +
+     build_esa + write_esa), at1MB's index files equal the goldens;
   9. `suffixerator -parts 3` and `-memlimit 4MB` through the port's CLI
      on at1MB (two processes at once): .suf/.lcp/.llv/.prj equal the
      goldens;
@@ -664,8 +663,8 @@ def log_stages(what: str, spans: dict, smi: str) -> None:
         f"{spans['esa.lcp_deep'][1]['deep']} [{smi}]")
 
 
-def phase_32m(work: Path, dev, smi: str) -> float:
-    """Phase 4; returns the host SA-IS + Kasai seconds."""
+def phase_32m(work: Path, dev, smi: str) -> None:
+    """Phase 4: the engines at 32 Mbp against host SA-IS + Kasai."""
     from genometools_torch.index import suffix
     from genometools_torch.index.esa import Encseq, build_esa, host_sa_lcp
     synthetic_32m(work / "big.fna")
@@ -716,35 +715,20 @@ def phase_32m(work: Path, dev, smi: str) -> float:
             raise SystemExit(f"32 Mbp LCP ({what}) differs from host Kasai")
     log(f"SA and LCP of the packed pipeline, of prefix doubling and of "
         f"build_esa equal host SA-IS/Kasai ({keys.size} suffixes)")
-    return host
 
 
-def phase_e2e(work: Path, dev, smi: str, host_32m: float) -> None:
+def phase_e2e(work: Path, dev) -> None:
     """Phase 8: suffixerator_e2e against the slow path and the goldens."""
-    from genometools_torch.index.esa import (Encseq, build_esa, host_sa_lcp,
-                                             write_esa)
+    from genometools_torch.index.esa import Encseq, build_esa, write_esa
     from genometools_torch.index.fastpipe import suffixerator_e2e
     for name, fasta in (("at1MB", work / "at1MB.fna"),
                         ("32Mbp", work / "big.fna")):
         enc = Encseq.from_files([str(fasta)])
-        if name == "at1MB":
-            t0 = time.perf_counter()
-            host_sa_lcp(enc.suffix_keys())
-            host = time.perf_counter() - t0
-        else:
-            host = host_32m
         fast = str(work / f"e2e_{name}")
-        walls = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            suffixerator_e2e([str(fasta)], fast, device=dev)
-            walls.append(time.perf_counter() - t0)
+        suffixerator_e2e([str(fasta)], fast, device=dev)
         slow = str(work / f"slow_{name}")
-        t0 = time.perf_counter()
         enc.save(slow)
         write_esa(build_esa(enc, device=dev), slow)
-        slow_s = time.perf_counter() - t0
         same_files(fast, slow, E2E_EXTS)
         if name == "at1MB":
             for ext in ("suf", "lcp", "llv", "prj"):
@@ -753,9 +737,8 @@ def phase_e2e(work: Path, dev, smi: str, host_32m: float) -> None:
                     raise SystemExit(f"e2e at1MB .{ext} differs from the "
                                      "golden")
         log(f"suffixerator_e2e {name} ({enc.total_length + 1} suffixes): "
-            f"{walls[0]:.3f}s, then {walls[1]:.3f}s [{smi}]; host SA-IS + "
-            f"Kasai alone {host:.3f}s; slow path (save, build_esa, "
-            f"write_esa) {slow_s:.3f}s; every file equals the slow path's"
+            f"every file equals the slow path's (save, build_esa, "
+            f"write_esa)"
             + (" and the index files the goldens" if name == "at1MB" else ""))
 
 
@@ -2563,7 +2546,7 @@ def main() -> int:
             f"goldens for all {len(dbs)} dbs {dbs}")
 
     with Phase("4 suffix array at 32 Mbp"):
-        host_32m = phase_32m(work, dev, smi)
+        phase_32m(work, dev, smi)
 
     with Phase("5 extension anchors on at1MB"):
         params = SeedExtendParams(extension="greedy")
@@ -2796,7 +2779,7 @@ def main() -> int:
             f"{k2r_summary(kout, cnt)} [{smi}]")
 
     with Phase("8 suffixerator_e2e at at1MB and 32 Mbp"):
-        phase_e2e(work, dev, smi, host_32m)
+        phase_e2e(work, dev)
 
     with Phase("9 suffixerator -parts and -memlimit on at1MB"):
         phase_parts(work, env)

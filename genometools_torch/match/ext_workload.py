@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.encseq import Encseq
+from ..core.native import diagband_select_native
 from .seed_extend import (SeedExtendParams, _seq_codes, build_seed_pairs,
                           default_seedlength, enumerate_kmers)
 
@@ -37,7 +38,6 @@ def _candidate_refs(aenc: Encseq, params: SeedExtendParams | None,
         else int(2.5 * k)
     alist = enumerate_kmers(aenc, k, revcomp=False)
     amaxlen = aenc.max_seq_length()
-    logw = params.logdiagbandwidth
 
     refs: list[tuple] = []
     seq_cache: dict = {}
@@ -46,37 +46,11 @@ def _candidate_refs(aenc: Encseq, params: SeedExtendParams | None,
         pa_seq, pb_seq, pb_pos, pa_pos = build_seed_pairs(
             alist, blist, True, params.maxfreq, inseqseeds=True,
             mindist=k if direction == "F" else 0)
-        n = pa_seq.size
-        if n == 0:
-            continue
-        seg_break = np.zeros(n, bool)
-        seg_break[0] = True
-        seg_break[1:] = (pa_seq[1:] != pa_seq[:-1]) | \
-            (pb_seq[1:] != pb_seq[:-1])
-        seg_starts = np.flatnonzero(seg_break)
-        seg_ends = np.append(seg_starts[1:], n)
-        for s0, s1 in zip(seg_starts, seg_ends):
+        idx, sseg, kstart, _ = diagband_select_native(
+            pa_seq, pb_seq, pb_pos, pa_pos, k=k, amaxlen=amaxlen,
+            logw=params.logdiagbandwidth, mincov=mincov, use_filter=True)
+        for i, s0 in zip(idx, kstart[sseg]):
             aseq, bseq = int(pa_seq[s0]), int(pb_seq[s0])
-            apos = pa_pos[s0:s1].astype(np.int64)
-            bpos = pb_pos[s0:s1].astype(np.int64)
-            band = (amaxlen + bpos - apos) >> logw
-            nb = int(band.max()) + 2
-            score = np.zeros(nb + 2, np.int64)
-            lastpos = np.zeros(nb + 2, np.int64)
-            for i in range(apos.size):
-                d = int(band[i]) + 1
-                key = int(bpos[i])
-                if lastpos[d] == 0 or lastpos[d] + k <= key:
-                    lastpos[d] = key
-                    score[d] += k
-                elif lastpos[d] < key:
-                    score[d] += key - lastpos[d]
-                    lastpos[d] = key
-            coverage = score[band + 1] + np.maximum(score[band],
-                                                    score[band + 2])
-            sel = coverage >= mincov
-            if not sel.any():
-                continue
             ukey = ("a", aseq)
             if ukey not in seq_cache:
                 seq_cache[ukey] = _seq_codes(aenc, aseq, False)
@@ -87,21 +61,20 @@ def _candidate_refs(aenc: Encseq, params: SeedExtendParams | None,
             useq = seq_cache[ukey]
             vseq = seq_cache[vkey]
             same_seq = aseq == bseq
-            for i in np.nonzero(sel)[0]:
-                bp, ap = int(bpos[i]), int(apos[i])
-                db, qs = ap + 1 - k, bp + 1 - k
-                if same_seq and db + k - 1 >= qs:
-                    continue
-                if db > 0 and qs > 0:
-                    voff = db + k if same_seq else 0
-                    if qs - voff > 0:
-                        refs.append((ukey, 0, db, vkey, voff, qs, True))
-                urb = min(len(useq), qs) if same_seq else len(useq)
-                if db + k < urb and qs + k < len(vseq):
-                    refs.append((ukey, db + k, urb, vkey, qs + k,
-                                 len(vseq), False))
-                if max_tasks is not None and len(refs) >= max_tasks:
-                    return refs, seq_cache, k
+            bp, ap = int(pb_pos[i]), int(pa_pos[i])
+            db, qs = ap + 1 - k, bp + 1 - k
+            if same_seq and db + k - 1 >= qs:
+                continue
+            if db > 0 and qs > 0:
+                voff = db + k if same_seq else 0
+                if qs - voff > 0:
+                    refs.append((ukey, 0, db, vkey, voff, qs, True))
+            urb = min(len(useq), qs) if same_seq else len(useq)
+            if db + k < urb and qs + k < len(vseq):
+                refs.append((ukey, db + k, urb, vkey, qs + k,
+                             len(vseq), False))
+            if max_tasks is not None and len(refs) >= max_tasks:
+                return refs, seq_cache, k
     return refs, seq_cache, k
 
 

@@ -305,16 +305,20 @@ def test_fused_engine_is_the_reference_engine():
     assert got == ref and ref
 
 
+# Atinsert cut at 2,000 tasks stays on the F strand; the whole of
+# Duplicate holds thousands of P-strand tasks
+@pytest.mark.parametrize("db,max_tasks", [("Atinsert.fna", 2000),
+                                          ("Duplicate.fna", None)])
 @pytest.mark.parametrize("form", ["collect_extension_pool",
                                   "collect_extension_tasks"])
-def test_extension_workload_matches_reference(form):
+def test_extension_workload_matches_reference(form, db, max_tasks):
     from genometools_tpu.match import ext_workload as rew
     from genometools_tpu.match.seed_extend import SeedExtendParams
-    enc = _golden_enc("Atinsert.fna")
+    enc = _golden_enc(db)
     ref = getattr(rew, form)(enc, SeedExtendParams(extension="greedy"),
-                             max_tasks=2000)
+                             max_tasks=max_tasks)
     got = getattr(tew, form)(enc, tse.SeedExtendParams(extension="greedy"),
-                             max_tasks=2000)
+                             max_tasks=max_tasks)
     if form == "collect_extension_tasks":      # ([(u, v), ...], k)
         ref = [*(x for pair in ref[0] for x in pair), ref[1]]
         got = [*(x for pair in got[0] for x in pair), got[1]]

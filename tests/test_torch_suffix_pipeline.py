@@ -180,8 +180,8 @@ def test_routing_canonical_to_pipeline_others_to_doubling(monkeypatch):
 
 
 def test_tensor_keys_match_host_oracles():
-    """Keys given as a tensor (as the wide path and suffixerator_e2e
-    give them) against the brute-force sort and Kasai."""
+    """Keys given as a tensor (build_suffix_array takes a numpy array
+    or a tensor) against the brute-force sort and Kasai."""
     keys = torch.from_numpy(_keys("dna"))
     sa, lcp = port.build_suffix_array(keys, device="cpu")
     ref_sa = port.suffix_array_bruteforce(keys.numpy())
