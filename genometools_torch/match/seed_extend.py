@@ -29,15 +29,20 @@ oracle the tests and chip_smoke.py compare against. The -parts/-pick
 grid runs the same pipeline per cell with either engine; -maxmat
 (``maximal_exact_matches``) is the reference's host code.
 
+The seed-pair join runs on the card where the run's device is CUDA
+(``match/seedjoin.py``), on the host otherwise (``build_seed_pairs``).
+
 Spans (``genometools_torch.trace``), per strand: seedext.seeds (k-mer
-lists and seed pairs), seedext.filter (the diagonal-band filter, one
-native pass over the pairs: pairs, segments kept, selected seeds, route),
-seedext.order (the selected seeds' flat arrays and the
-strand pool's upload), seedext.walk (the rounds; rounds, extended: seeds
-sent to a batch, used: extensions the walk consumed), within it one
-seedext.wave for each batch of extensions (candidates, round); in a
-greedy wave, one greedy.window for each pass of the flank window (cap:
-its width, lanes, retried: lanes sent on to the next, 8x wider pass).
+lists and seed pairs), within it seedext.join (route: card, native or
+numpy; candidates: pairs before the mask, counted on the card; pairs),
+seedext.filter (the diagonal-band filter, one native pass over the
+pairs: pairs, segments kept, selected seeds, route), seedext.order (the
+selected seeds' flat arrays and the strand pool's upload), seedext.walk
+(the rounds; rounds, extended: seeds sent to a batch, used: extensions
+the walk consumed), within it one seedext.wave for each batch of
+extensions (candidates, round); in a greedy wave, one greedy.window
+for each pass of the flank window (cap: its width, lanes, retried:
+lanes sent on to the next, 8x wider pass).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import math
 from dataclasses import dataclass, field, fields
 
 import numpy as np
+import torch
 
 from .. import trace
 from ..core.chardef import is_special
@@ -61,6 +67,7 @@ from ..ops.pool import upload_pool
 from ..ops.kmer import kmer_codes_np, spaced_kmer_codes_np
 from ..ops.xdrop import XdropScores, optimal_xdrop_belowscore, xdrop_extend
 from ..ops.xdrop_batch import xdrop_extend_batch_pool
+from .seedjoin import seed_pairs_device
 
 # the most seeds one batch of a round extends; a round with more live
 # candidates goes in several batches (the seedext cell's first round
@@ -180,17 +187,25 @@ def default_seedlength(aenc: Encseq, benc: Encseq, nchars: int = 4) -> int:
 
 def _revcomp_codes(enc: Encseq) -> np.ndarray:
     """Whole-encseq code array with every sequence reverse-complemented
-    in place (separators untouched). Cached per encseq."""
+    in place (separators untouched): one gather of each position's
+    mirror inside its own sequence, complemented (the complement table
+    keeps specials). Cached per encseq."""
     cached = enc.__dict__.get("_rc_codes")
     if cached is not None:
         return cached
-    comp = enc.alphabet.complement_table()
     out = np.array(enc.codes, copy=True)
-    for s in range(enc.num_sequences):
-        lo = int(enc.seq_startpos(s))
-        hi = int(enc.seq_endpos(s))
-        seg = out[lo:hi + 1][::-1]
-        out[lo:hi + 1] = np.where(is_special(seg), seg, comp[seg])
+    if out.size:
+        # runs of sequences and separators, each with lo + hi of its
+        # span: a position p's mirror is lo + hi - p
+        s = np.arange(enc.num_sequences)
+        lo, hi = enc.seq_startpos(s), enc.seq_endpos(s)
+        ends = np.empty(2 * s.size - 1, np.int64)
+        ends[0::2], ends[1::2] = lo + hi, 2 * enc.ssp
+        runs = np.ones(ends.size, np.int64)
+        runs[0::2] = hi - lo + 1
+        mirror = np.repeat(ends, runs)
+        mirror -= np.arange(mirror.size)
+        out = enc.alphabet.complement_table()[enc.codes[mirror]]
     enc.__dict__["_rc_codes"] = out
     return out
 
@@ -213,8 +228,7 @@ def enumerate_kmers(encseq: Encseq, k: int, revcomp: bool = False,
     if spaced_mask is None and k <= 31 and encseq.alphabet.num_chars == 4:
         n = encseq.num_sequences
         flat = _revcomp_codes(encseq) if revcomp else encseq.codes
-        starts = np.asarray([encseq.seq_startpos(s) for s in range(n)],
-                            np.int64)
+        starts = np.asarray(encseq.seq_startpos(np.arange(n)), np.int64)
         lens = np.asarray(encseq.seq_length(np.arange(n)), np.int64) \
             if n else np.zeros(0, np.int64)
         res = kmer_list_native(flat, starts, lens, k)
@@ -242,21 +256,38 @@ def enumerate_kmers(encseq: Encseq, k: int, revcomp: bool = False,
 
 def build_seed_pairs(alist, blist, selfcomp: bool, maxfreq: int | None,
                      inseqseeds: bool = True, mindist: int = 1,
-                     maxdist: int | None = None):
-    """Merge-join on equal codes through the reference's native join;
-    returns (aseq, bseq, bpos, apos) sorted by (aseq, bseq, bpos, apos)
-    (ref: gt_diagbandseed_merge, diagbandseed.c:2654). Same-sequence
-    pairs need apos + mindist <= bpos <= apos + maxdist. Lists the
-    native join's packed words cannot hold (32-mers, positions beyond
-    2^31) take the reference package's numpy join."""
-    if get_lib() is None:
-        raise RuntimeError("the native seed-pair join is unavailable")
-    pairs = seed_pair_join_native(alist, blist, selfcomp, maxfreq,
-                                  inseqseeds, mindist, maxdist)
-    if pairs is not None:
-        return pairs
-    return _numpy_seed_pairs(alist, blist, selfcomp, maxfreq, inseqseeds,
-                             mindist, maxdist)
+                     maxdist: int | None = None, device=None):
+    """Merge-join on equal codes; returns (aseq, bseq, bpos, apos)
+    sorted by (aseq, bseq, bpos, apos) (ref: gt_diagbandseed_merge,
+    diagbandseed.c:2654). Same-sequence pairs need apos + mindist <=
+    bpos <= apos + maxdist. On a CUDA device the join runs there
+    (``seedjoin.seed_pairs_device``); without a device or on the CPU,
+    and where the card's packed key or free memory cannot hold the
+    lists, it takes the reference's native join, and lists the native
+    join's packed words cannot hold (32-mers, positions beyond 2^31) the
+    reference package's numpy join. One seedext.join span records the
+    route (card, native or numpy), the candidates (pairs before the
+    mask, counted on the card only) and the pairs."""
+    with trace.span("seedext.join") as sp:
+        got = None
+        if device is not None and torch.device(device).type == "cuda":
+            got = seed_pairs_device(alist, blist, selfcomp, maxfreq,
+                                    inseqseeds, mindist, maxdist, device)
+        if got is not None:
+            (pairs, candidates), route = got, "card"
+        else:
+            if get_lib() is None:
+                raise RuntimeError("the native seed-pair join is "
+                                   "unavailable")
+            candidates, route = None, "native"
+            pairs = seed_pair_join_native(alist, blist, selfcomp, maxfreq,
+                                          inseqseeds, mindist, maxdist)
+            if pairs is None:
+                route = "numpy"
+                pairs = _numpy_seed_pairs(alist, blist, selfcomp, maxfreq,
+                                          inseqseeds, mindist, maxdist)
+        sp.set(route=route, candidates=candidates, pairs=int(pairs[0].size))
+    return pairs
 
 
 def _numpy_seed_pairs(alist, blist, selfcomp, maxfreq, inseqseeds,
@@ -968,7 +999,8 @@ def seed_extend(aenc: Encseq, benc: Encseq | None = None,
                                 spaced_mask=smask)
             pairs = build_seed_pairs(alist, blist, selfcomp, params.maxfreq,
                                      inseqseeds=True,
-                                     mindist=k if direction == "F" else 0)
+                                     mindist=k if direction == "F" else 0,
+                                     device=run["dev"])
             sp.set(pairs=int(pairs[0].size))
         matches.extend(_strand_matches(aenc, benc, direction, pairs,
                                        selfcomp=selfcomp, **run))
@@ -1025,7 +1057,7 @@ def _seed_extend_grid(aenc, benc, selfcomp, strands, run):
     for ai, bi in cells:
         matches.extend(grid_cell_matches(
             aenc, benc, selfcomp, strands, alist_full, blists,
-            aranges[ai], branges[bi], ai == bi, run))
+            aranges[ai], branges[bi], ai == bi, run, device=run["dev"]))
     return matches
 
 
@@ -1048,10 +1080,11 @@ def grid_cells(aenc, benc, selfcomp, params):
 
 
 def grid_cell_matches(aenc, benc, selfcomp, strands, alist_full, blists,
-                      arange, brange, diagonal, run):
+                      arange, brange, diagonal, run, device=None):
     """One part x part grid cell's full two-strand pipeline (seed
-    pairing, diagband filter, extension, match records). Cells are
-    mutually independent (ref: src/match/diagbandseed.c:5982). An
+    pairing, diagband filter, extension, match records); `device` is the
+    seed-pair join's (``build_seed_pairs``: None joins on the host).
+    Cells are mutually independent (ref: src/match/diagbandseed.c:5982). An
     off-diagonal self-comparison cell joins its pairs as a
     self-comparison but extends them as a comparison of two sets, as
     the reference package does (its match/seed_extend.py:488-494)."""
@@ -1066,7 +1099,7 @@ def grid_cell_matches(aenc, benc, selfcomp, strands, alist_full, blists,
         pairs = build_seed_pairs(
             alist, blist, diag_cell or (selfcomp and not diagonal),
             params.maxfreq, inseqseeds=diag_cell,
-            mindist=k if direction == "F" else 0)
+            mindist=k if direction == "F" else 0, device=device)
         out.extend(_strand_matches(aenc, benc, direction, pairs,
                                    selfcomp=diag_cell, **run))
     return out

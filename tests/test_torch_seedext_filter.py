@@ -247,7 +247,7 @@ def test_both_joins_give_the_same_lines(monkeypatch, no_filter):
     assert native and set(seen) == {np.dtype(np.int32)}
 
     def numpy_join(alist, blist, selfcomp, maxfreq, inseqseeds=True,
-                   mindist=1, maxdist=None):
+                   mindist=1, maxdist=None, device=None):
         pairs = tuple(a.astype(np.int64) for a in tse._numpy_seed_pairs(
             alist, blist, selfcomp, maxfreq, inseqseeds, mindist, maxdist))
         seen.append(pairs[0].dtype)

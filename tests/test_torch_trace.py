@@ -203,6 +203,13 @@ def test_seed_loop_spans(spans):
                    "seedext.walk"] * 2
     assert [r.attrs["strand"] for r in recs if r.name == "seedext.seeds"] \
         == ["F", "P"]
+    seeds = [r for r in recs if r.name == "seedext.seeds"]
+    joins = [r for r in recs if r.name == "seedext.join"]
+    assert [ids[j.parent] for j in joins] == seeds
+    # the CPU run joins on the host: the card route counts candidates
+    assert all(j.attrs == {"route": "native", "candidates": None,
+                           "pairs": s.attrs["pairs"]} and j.attrs["pairs"]
+               for j, s in zip(joins, seeds))
     walks = [r for r in recs if r.name == "seedext.walk"]
     assert sum(r.attrs["matches"] for r in walks) == len(on)
     waves = [r for r in recs if r.name == "seedext.wave"]
