@@ -39,10 +39,10 @@ Every lane is bit-exact against the scalar engine
 
 Spans (``genometools_torch.trace``): greedy.batch (lanes, symbols: the
 flanks' total length) around a call, within it greedy.k1 (lanes,
-undone: lanes that fit K1 and are not finished there), greedy.rescue
-(lanes), greedy.resident (lanes, gave_up: lanes the chunk loop left to
-the host; greedy.chunk on the host-driven route) and greedy.host
-(lanes, symbols).
+symbols: their flanks' total length, undone: lanes that fit K1 and are
+not finished there), greedy.rescue (lanes, symbols), greedy.resident
+(lanes, gave_up: lanes the chunk loop left to the host; greedy.chunk on
+the host-driven route) and greedy.host (lanes, symbols).
 """
 
 from __future__ import annotations
@@ -176,9 +176,14 @@ def greedy_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
     todo = np.ones(N, bool)
     if N == 0:
         return dict(results, died=died, fallback=fallback, touched=touched)
+
+    def symbols(lanes=slice(None)) -> int:
+        """The lanes' two flanks' total length (a span attribute)."""
+        return int(u_len[lanes].sum() + v_len[lanes].sum())
+
     with trace.span("greedy.batch", lanes=N) as sp:
         if sp:
-            sp.set(symbols=int(u_len.sum() + v_len.sum()))
+            sp.set(symbols=symbols())
         T = pool.size
         if gp is None:
             gp = upload_pool(pool, dev)
@@ -208,11 +213,15 @@ def greedy_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
         Fs = np.flatnonzero(fits)
         if Fs.size:
             with trace.span("greedy.k1", lanes=int(Fs.size)) as k1:
+                if k1:
+                    k1.set(symbols=symbols(Fs))
                 run(Fs, cfg.FULL_D, cfg.FULL_GENS)
                 k1.set(undone=int((todo & fits).sum()))
         Fs = np.flatnonzero(todo & fits)
         if cfg.RESCUE is not None and Fs.size:
-            with trace.span("greedy.rescue", lanes=int(Fs.size)):
+            with trace.span("greedy.rescue", lanes=int(Fs.size)) as rs:
+                if rs:
+                    rs.set(symbols=symbols(Fs))
                 run(Fs, (cfg.RESCUE[0],), cfg.RESCUE[1])
 
         rest = np.flatnonzero(todo)
@@ -241,8 +250,7 @@ def greedy_extend_batch_pool(pool: np.ndarray, u_off, u_len, v_off, v_len,
                 PolishingInfo.new(float(errorpercentage), history,
                                   matchscore_bias)
             with trace.span("greedy.host", lanes=int(rest.size),
-                            symbols=int(u_len[rest].sum() +
-                                        v_len[rest].sum())):
+                            symbols=symbols(rest)):
                 res = greedy_batch_native(
                     us, vs, max_history=history,
                     perc_mat_history=perc_mat_history,

@@ -1,10 +1,13 @@
 """The benchmark's plain greedy reference (portbench/reference/greedy.py)
 against the port: its greedy extension against the scalar engine
-``ops/greedy.py::greedy_extend`` on seeded random flank pairs, and its
+``ops/greedy.py::greedy_extend`` on seeded random flank pairs, its
 `gt seed_extend -extendgreedy -l 500 -minidentity 80` lines against the
 port's rounds on the CPU and the fused host engine on small planted-
-repeat genomes. The reference imports numpy alone; the port is the
-witness here, not the other way round."""
+repeat genomes, and its `-l 100 -minidentity 90` lines against the
+port's rounds on shredded at1MB reads (on the CPU a slice; on the card,
+marked `cuda`, the cell seedext.reads_greedy's whole read set). The
+reference imports numpy alone; the port is the witness here, not the
+other way round."""
 
 import numpy as np
 import pytest
@@ -15,6 +18,9 @@ from genometools_torch.ops import greedy_batch
 from genometools_torch.ops.greedy import PolishingInfo, greedy_extend
 from genometools_torch.utils.synthetic import (mutate, planted_repeats,
                                                write_fasta)
+from portbench import harness
+from portbench.inputs import at1mb_reads
+from portbench.inputs.synthetic import write_fasta as write_reads
 from portbench.reference import greedy as R
 from portbench.reference.fasta import read_records
 
@@ -122,6 +128,67 @@ def test_reference_equals_the_rounds_on_the_cpu(tmp_path):
     ref = _lines(plan, plan.walk(plan.segments))
     assert len(ref) > 10
     assert ref == wave == fused
+
+
+READS = dict(PARAMS, userdefinedleastlength=100, minidentity=90)
+
+
+def _shredded(path, first, last, order_seed):
+    """gt shredder's reads of at1MB's sequences first..last-1 as the
+    cell seedext.reads_greedy shreds them (-coverage 2, 300-700 bp,
+    shred seed 1), written in an order drawn from order_seed."""
+    seqs = at1mb_reads.read_esq(at1mb_reads.DATA / "idx")[first:last]
+    reads = at1mb_reads.shredder(seqs, 300, 700, 0, 2,
+                                 np.random.default_rng(1))
+    order = np.random.default_rng(order_seed).permutation(len(reads))
+    write_reads(path, [(f"read{i}", reads[j])
+                       for i, j in enumerate(order)])
+
+
+@pytest.mark.parametrize("order_seed", [5, 2147483659])
+def test_reference_equals_the_rounds_on_reads(tmp_path, order_seed):
+    """The port's default path (the rounds, the plain K1) against the
+    reference's walk of every segment, line for line, on the 242 reads
+    of at1MB's sequences 200-299: both strands give lines there."""
+    path = tmp_path / "reads.fna"
+    _shredded(path, 200, 300, order_seed)
+    enc = Encseq.from_files([str(path)])
+    greedy_batch.reset_stats()
+    wave = [m.line() for m in seed_extend(enc, None,
+                                          SeedExtendParams(**READS),
+                                          device="cpu")]
+    assert greedy_batch.stats["kernel_lanes"] > 0
+    plan = R.GreedyPlan(read_records(path), READS)
+    ref = _lines(plan, plan.walk(plan.segments))
+    assert ref == wave
+    strands = {line.split()[3] for line in ref}
+    assert strands == {"F", "P"}
+
+
+@pytest.mark.cuda
+def test_reference_equals_the_rounds_on_the_whole_read_set(tmp_path):
+    """On the card: one job of the cell seedext.reads_greedy (its whole
+    read set, an order from a large seed) through the port's normal
+    path, against the reference's walk of every segment; K1 takes the
+    lanes."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the cell runs K1 on the card")
+    cell = harness.find_cell("seedext.reads_greedy")
+    t, seed = cell.traffic, 2147483659
+    inputs = harness.load_part("inputs", t["generator"]).make(
+        t["params"], harness.seeded(seed, "inputs"), tmp_path)
+    ctx = harness.Context(t, cell.config, inputs, seed,
+                          torch.device("cuda", 0))
+    job = harness.load_part("jobs", t["job"]).Job(ctx)
+    job.reset_counters()
+    job.run(0)
+    counters = job.counters()
+    assert greedy_batch.stats["kernel_lanes"] >= 10_000, counters
+    assert counters["matches"] > 1000
+    got = job.check(ctx.device)
+    assert got == {"foreign_lines": (0, 0),
+                   "segments_differing": (0, 0)}, got
 
 
 def test_control_differs(genome40k):

@@ -262,3 +262,38 @@ def test_index_path_spans(spans, tmp_path):
     assert at["esa.fetch"]["bytes"] == 2 * 4 * (enc.total_length + 1)
     starts = [r.start_ns for r in recs]
     assert starts == sorted(starts)
+
+
+def test_greedy_k1_and_rescue_symbols(spans):
+    """greedy.k1 and greedy.rescue carry `symbols`, the two flanks' total
+    length over the lanes each takes: equal flanks finish in K1's first
+    generation, copies with every eighth symbol changed outlast its
+    generation cap of 8 and go to the rescue."""
+    from genometools_torch.ops.greedy_batch import (GreedyBatchConfig,
+                                                    greedy_extend_batch)
+    rng = np.random.default_rng(3)
+    equal = [rng.integers(0, 4, int(n)).astype(np.uint8)
+             for n in rng.integers(20, 200, 6)]
+    long = [rng.integers(0, 4, int(n)).astype(np.uint8)
+            for n in rng.integers(200, 400, 4)]
+    changed = [u.copy() for u in long]
+    for v in changed:
+        v[::8] = (v[::8] + 1) % 4
+    cfg = GreedyBatchConfig()
+    cfg.FULL_GENS = 8
+    kw = dict(seedlengths=10, perc_mat_history=50,
+              maxalignedlendifference=30, history=64, cfg=cfg,
+              device="cpu")
+    trace.enable(False)
+    off = greedy_extend_batch(equal + long, equal + changed, **kw)
+    trace.enable()
+    on = greedy_extend_batch(equal + long, equal + changed, **kw)
+    assert all(np.array_equal(on[k], off[k]) for k in on)
+    assert not on["fallback"].any()
+    recs = {r.name: r for r in spans()}
+    both = sum(2 * u.size for u in equal + long)
+    assert recs["greedy.batch"].attrs["symbols"] == both
+    assert recs["greedy.k1"].attrs == {"lanes": 10, "symbols": both,
+                                       "undone": 4}
+    assert recs["greedy.rescue"].attrs == {
+        "lanes": 4, "symbols": sum(2 * u.size for u in long)}
